@@ -39,13 +39,17 @@ LIB_NAME = "libmojosplat_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> argument types of the C entry point (pointers, ints, floats, and
-# the stream last); every entry point returns an int error code.
+# the stream last); every entry point returns an int error code. A null
+# pointer is passed as None.
 _SIGNATURES = {
     "expand_offsets_launch": (_P, _I, _I, _P, _I, _P),
     "slice_gather_launch": (_P, _I, _P, _I, _I, _P, _P),
-    "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
+    "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
+    "raster_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
 }
 
 

@@ -17,11 +17,25 @@ from .camera import Camera
 def params_from_numpy(
     params: Mapping[str, np.ndarray], device: torch.device | str
 ) -> dict[str, torch.Tensor]:
-    """Parameter dict of numpy arrays -> tensors on ``device``, same dtypes."""
+    """Parameter dict of numpy arrays -> tensors on ``device``, same dtypes.
+
+    Always a copy: an optimizer that steps the tensors in place leaves the
+    numpy arrays as they were."""
     return {
-        k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))).to(device)
+        k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))).to(device, copy=True)
         for k, v in params.items()
     }
+
+
+def set_grads_from_numpy(
+    params: Mapping[str, torch.Tensor], grads: Mapping[str, np.ndarray]
+) -> None:
+    """Give each parameter the numpy gradient of the same name as its
+    ``.grad``, so an optimizer steps on exactly the gradient the reference
+    package's optimizer is fed."""
+    for k, g in grads.items():
+        p = params[k]
+        p.grad = torch.from_numpy(np.ascontiguousarray(np.asarray(g))).to(p.device, p.dtype)
 
 
 def camera_from_numpy(fields: Mapping[str, Any], device: torch.device | str) -> Camera:

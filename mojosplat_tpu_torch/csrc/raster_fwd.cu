@@ -27,6 +27,17 @@
 // per pixel and slot) and the latency of the serial walk; the slot table is
 // read once per tile. __launch_bounds__(1024) caps registers at 64 a thread
 // so a 32x32 tile (1024 threads) fits one block.
+//
+// The backward's residual, written only when the caller passes its buffers
+// (a separate instantiation, so the no-grad render runs the same code as
+// without it): each pixel's transmittance at the entry of every
+// kResidChunk-slot chunk it reaches alive, tchunk (n_tiles, nch, ts * ts),
+// and its stop index, stop (n_tiles, ts * ts) int32: the slot whose
+// transmittance test ended the pixel's walk (that slot is not applied), or
+// the tile's count. The TPU kernel packs the done latch into the sign of
+// its per-chunk T instead; a stop index needs no initialised buffer, since
+// B2 reads a chunk's T only where the chunk starts below the stop. The
+// alpha and the T update are common.cuh's, shared with B2.
 
 #include "common.cuh"
 
@@ -34,12 +45,13 @@ namespace {
 
 constexpr int kBatch = 256;  // slots staged in shared memory per step
 
-template <int CP>
+template <int CP, bool RESID>
 __global__ void __launch_bounds__(1024)
 raster_fwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
                   const int* __restrict__ counts, int ts, int tw,
                   float alpha_threshold, float max_alpha, float eps,
-                  float* __restrict__ out) {
+                  float* __restrict__ out, float* __restrict__ tchunk,
+                  int* __restrict__ stop, int nch) {
     constexpr int kRows = 6 + CP;
     __shared__ float slots[kRows * kBatch];
 
@@ -54,6 +66,8 @@ raster_fwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
 
     float T = 1.0f;
     bool done = false;
+    int stop_at = count;
+    float* tres = RESID ? tchunk + static_cast<int64_t>(t) * nch * P + p : nullptr;
     float acc[CP];
 #pragma unroll
     for (int c = 0; c < CP; ++c) acc[c] = 0.0f;
@@ -69,21 +83,21 @@ raster_fwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
         __syncthreads();
         if (!done) {
             for (int j = 0; j < n; ++j) {
+                if (RESID && ((b0 + j) % kResidChunk) == 0) {
+                    tres[static_cast<int64_t>((b0 + j) / kResidChunk) * P] = T;
+                }
                 const float dx = slots[0 * kBatch + j] - px;
                 const float dy = slots[1 * kBatch + j] - py;
-                const float ca = slots[2 * kBatch + j];
-                const float cb = slots[3 * kBatch + j];
-                const float cc = slots[4 * kBatch + j];
-                const float op = slots[5 * kBatch + j];
-                const float sigma = 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
-                const float raw = op * expf(-sigma);
-                // Written so that a NaN sigma or alpha is skipped, as the
-                // reference's select does.
-                const float alpha = raw > max_alpha ? max_alpha : raw;
-                if (!(sigma >= 0.0f) || !(alpha >= alpha_threshold)) continue;
-                const float next_T = T * (1.0f - alpha);
+                float e, raw, alpha;
+                if (!ms_slot_alpha(dx, dy, slots[2 * kBatch + j], slots[3 * kBatch + j],
+                                   slots[4 * kBatch + j], slots[5 * kBatch + j],
+                                   alpha_threshold, max_alpha, e, raw, alpha)) {
+                    continue;
+                }
+                const float next_T = ms_transmit(T, alpha);
                 if (next_T <= eps) {
                     done = true;
+                    stop_at = b0 + j;
                     break;
                 }
                 const float w = alpha * T;
@@ -100,37 +114,53 @@ raster_fwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
 #pragma unroll
     for (int c = 0; c < CP; ++c) o[c * P] = acc[c];
     o[CP * P] = T;
+    if (RESID) stop[static_cast<int64_t>(t) * P + p] = stop_at;
 }
 
 template <int CP>
 void launch(const float* pdata, int n_tiles, int cap, const int* counts,
             int ts, int tw, float alpha_threshold, float max_alpha, float eps,
-            float* out, cudaStream_t stream) {
-    raster_fwd_kernel<CP><<<n_tiles, ts * ts, 0, stream>>>(
-        pdata, static_cast<int64_t>(n_tiles) * cap, cap, counts, ts, tw,
-        alpha_threshold, max_alpha, eps, out);
+            float* out, float* tchunk, int* stop, cudaStream_t stream) {
+    const int64_t stride = static_cast<int64_t>(n_tiles) * cap;
+    const int nch = (cap + kResidChunk - 1) / kResidChunk;
+    if (tchunk != nullptr) {
+        raster_fwd_kernel<CP, true><<<n_tiles, ts * ts, 0, stream>>>(
+            pdata, stride, cap, counts, ts, tw, alpha_threshold, max_alpha, eps,
+            out, tchunk, stop, nch);
+    } else {
+        raster_fwd_kernel<CP, false><<<n_tiles, ts * ts, 0, stream>>>(
+            pdata, stride, cap, counts, ts, tw, alpha_threshold, max_alpha, eps,
+            out, nullptr, nullptr, nch);
+    }
 }
 
 }  // namespace
 
 // pdata: (rows, n_tiles * cap) f32 with rows = 6 + cp, 4 <= cp <= 8;
 // counts: (n_tiles,) int32 <= cap; out: (n_tiles, cp + 1, ts * ts) f32.
+// tchunk (n_tiles, ceil(cap / kResidChunk), ts * ts) f32 and stop
+// (n_tiles, ts * ts) int32 receive the backward's residual; both null for
+// a render that needs no gradient.
 extern "C" int raster_fwd_launch(const void* pdata, int rows, int n_tiles,
                                  int cap, const void* counts, int ts, int tw,
                                  float alpha_threshold, float max_alpha,
-                                 float eps, void* out, void* stream) {
+                                 float eps, void* out, void* tchunk,
+                                 void* stop, void* stream) {
     if (n_tiles <= 0) return 0;
     if (ts <= 0 || ts * ts > 1024) return static_cast<int>(cudaErrorInvalidValue);
     const auto* pd = static_cast<const float*>(pdata);
     const auto* ct = static_cast<const int*>(counts);
     auto* o = static_cast<float*>(out);
+    auto* tc = static_cast<float*>(tchunk);
+    auto* st = static_cast<int*>(stop);
+    if ((tc == nullptr) != (st == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     switch (rows - 6) {
-        case 4: launch<4>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, s); break;
-        case 5: launch<5>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, s); break;
-        case 6: launch<6>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, s); break;
-        case 7: launch<7>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, s); break;
-        case 8: launch<8>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, s); break;
+        case 4: launch<4>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
+        case 5: launch<5>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
+        case 6: launch<6>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
+        case 7: launch<7>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
+        case 8: launch<8>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     MS_RETURN_LAUNCH_STATUS();

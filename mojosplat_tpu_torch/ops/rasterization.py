@@ -20,7 +20,10 @@ Two routes:
   - ``"cuda"``: the reference's Pallas route. The slot table is cut from
     the sorted list (kernel B5, ``slice_cuda``), the slot fields are packed
     with one gather, and the blend kernel B1 (``raster_cuda``) walks each
-    pixel's slots; on CPU tensors both kernels run their plain versions.
+    pixel's slots. Its gradient comes from the blend backward B2 and the
+    gather's adjoint, a stable sort plus the segment sum B3 over the slots
+    the blend reads; the binning outputs are integers and carry none. On CPU tensors every kernel runs
+    its plain version.
 """
 
 from __future__ import annotations
@@ -50,8 +53,10 @@ def tile_pixel_centers(tiles: torch.Tensor, ts: int, tw: int, dtype):
     return px, py
 
 
-def _pixel_alphas(px, py, means_k, conics_k, opac_k, valid_k, config):
-    """Alphas (..., P, K) of K gaussians at P pixels, zeroed where skipped.
+def _pixel_terms(px, py, means_k, conics_k, opac_k, valid_k, config):
+    """The per-(pixel, slot) terms of the alpha rule for K gaussians at P
+    pixels: (alpha, keep, raw, e, dx, dy), each (..., P, K), with alpha
+    zeroed where skipped, raw = opacity * e and e = exp(-sigma).
 
     px, py: (..., P); means_k (..., K, 2); conics_k (..., K, 3);
     opac_k, valid_k: (..., K).
@@ -62,9 +67,42 @@ def _pixel_alphas(px, py, means_k, conics_k, opac_k, valid_k, config):
     b = conics_k[..., None, :, 1]
     c = conics_k[..., None, :, 2]
     sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-    alpha = torch.clamp(opac_k[..., None, :] * torch.exp(-sigma), max=config.max_alpha)
+    e = torch.exp(-sigma)
+    raw = opac_k[..., None, :] * e
+    alpha = torch.clamp(raw, max=config.max_alpha)
     keep = valid_k[..., None, :] & (sigma >= 0.0) & (alpha >= config.alpha_threshold)
-    return torch.where(keep, alpha, torch.zeros_like(alpha))
+    return torch.where(keep, alpha, torch.zeros_like(alpha)), keep, raw, e, dx, dy
+
+
+def _pixel_alphas(px, py, means_k, conics_k, opac_k, valid_k, config):
+    """Alphas (..., P, K) of K gaussians at P pixels, zeroed where skipped."""
+    return _pixel_terms(px, py, means_k, conics_k, opac_k, valid_k, config)[0]
+
+
+def _chunk_transmittance(T_in, done_in, alpha, eps):
+    """The stop rule over one chunk: (applied, eff_alpha, excl, trans,
+    done_out), where excl (..., P, K) is the product of (1 - eff_alpha)
+    over the slots before each slot of the chunk, trans (..., P) that
+    product over the whole chunk (T_out = T_in * trans).
+
+    T_in, done_in: (..., P); alpha: (..., P, K) already zeroed for skipped
+    slots.
+    """
+    # T is non-increasing along the chunk, so ``T_after > eps`` reproduces
+    # the sequential stop exactly: the slot that would take T to <= eps is
+    # itself not applied.
+    T_after = T_in[..., None] * torch.cumprod(1.0 - alpha, dim=-1)
+    applied = (T_after > eps) & ~done_in[..., None]
+    eff_alpha = torch.where(applied, alpha, torch.zeros_like(alpha))
+    one_minus_eff = 1.0 - eff_alpha
+    excl = torch.cat(
+        [torch.ones_like(eff_alpha[..., :1]),
+         torch.cumprod(one_minus_eff, dim=-1)[..., :-1]],
+        dim=-1,
+    )
+    trans = torch.prod(one_minus_eff, dim=-1)
+    done_out = done_in | (T_after[..., -1] <= eps)
+    return applied, eff_alpha, excl, trans, done_out
 
 
 def _blend_chunk(T_in, done_in, accum_in, alpha, colors_chunk, eps):
@@ -74,24 +112,10 @@ def _blend_chunk(T_in, done_in, accum_in, alpha, colors_chunk, eps):
     already zeroed for skipped slots; colors_chunk: (..., K, C).
     Returns updated (T, done, accum).
     """
-    one_minus = 1.0 - alpha
-    # T is non-increasing along the chunk, so ``T_after > eps`` reproduces
-    # the sequential stop exactly: the slot that would take T to <= eps is
-    # itself not applied.
-    T_after = T_in[..., None] * torch.cumprod(one_minus, dim=-1)
-    applied = (T_after > eps) & ~done_in[..., None]
-    eff_alpha = torch.where(applied, alpha, torch.zeros_like(alpha))
-    one_minus_eff = 1.0 - eff_alpha
-    excl = torch.cat(
-        [torch.ones_like(eff_alpha[..., :1]),
-         torch.cumprod(one_minus_eff, dim=-1)[..., :-1]],
-        dim=-1,
-    )
+    _, eff_alpha, excl, trans, done_out = _chunk_transmittance(T_in, done_in, alpha, eps)
     weights = eff_alpha * (T_in[..., None] * excl)
     accum = accum_in + torch.matmul(weights, colors_chunk)
-    T_out = T_in * torch.prod(one_minus_eff, dim=-1)
-    done_out = done_in | (T_after[..., -1] <= eps)
-    return T_out, done_out, accum
+    return T_in * trans, done_out, accum
 
 
 def build_tile_table(binning: BinningResult, tile_capacity: int):
@@ -153,7 +177,7 @@ def rasterize_gaussians(
         counts = torch.clamp(raw_counts, 0, cap).to(torch.int32)
         tile_overflow = torch.clamp(raw_counts - cap, min=0).sum().to(torch.int32)
         slot_gids = segment_slice_gather(binning.gaussian_ids, starts, cap)
-        pdata = gather_tile_data(means2d, conics, colors, opacities, slot_gids)
+        pdata = gather_tile_data(means2d, conics, colors, opacities, slot_gids, counts)
         out = raster_tiles(pdata, counts, ts, tw, config)
         T_tiles = out[:, max(4, C), :]  # transmittance follows the channels
         out_tiles = out[:, :C, :] + T_tiles[:, None, :] * background[None, :, None]

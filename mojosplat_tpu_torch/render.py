@@ -1,13 +1,13 @@
 """End-to-end render: SH colour -> projection -> binning -> rasterization.
 
-Counterpart of ``mojosplat_tpu.render.render_gaussians``, forward only on
-the ``"cuda"`` route. ``features`` is (N, C) RGB (``sh_degree=None``) or
-(N, K, C) SH coefficients.
+Counterpart of ``mojosplat_tpu.render.render_gaussians``, differentiable
+on both routes: SH colour and projection by plain autograd, the blend and
+the slot gather by the kernels' backward on the ``"cuda"`` route.
+``features`` is (N, C) RGB (``sh_degree=None``) or (N, K, C) SH
+coefficients.
 
 Not ported yet, and raising ``NotImplementedError``: ``viewport_rows``,
-``means2d_offset``, ``absgrad_sink``, and gradients on the ``"cuda"`` route
-(its backward kernels come later, so inputs that require grad are refused
-rather than silently detached).
+``means2d_offset`` and ``absgrad_sink``.
 """
 
 from __future__ import annotations
@@ -56,13 +56,6 @@ def render_gaussians(
                         ("absgrad_sink", absgrad_sink)):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet")
-    if config.raster_impl == "cuda" and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (means3d, scales, quats, opacities, features)
-    ):
-        raise NotImplementedError(
-            "the cuda route is forward only: its backward kernels are not "
-            "ported yet (render under torch.no_grad() or use raster_impl='torch')"
-        )
 
     if sh_degree is None:
         if features.ndim != 2:

@@ -164,10 +164,12 @@ def test_gather_tile_data_layout():
     colors = torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32))
     opac = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
     ids = torch.tensor([3, -1, 11, 0, 7], dtype=torch.int32)
-    pdata = gather_tile_data(means2d, conics, colors, opac, ids)
+    counts = torch.tensor([5], dtype=torch.int32)  # one tile of 5 slots
+    pdata = gather_tile_data(means2d, conics, colors, opac, ids, counts)
     assert pdata.shape == (11, 5)
     safe = ids.clamp(0, n - 1).long()
     want = torch.cat([means2d[safe].T, conics[safe].T, opac[safe][None], colors[safe].T])
     assert torch.equal(pdata, want)
     # Fewer than 4 channels are padded with zero rows.
-    assert gather_tile_data(means2d, conics, colors[:, :3], opac, ids)[9].abs().sum() == 0
+    assert gather_tile_data(means2d, conics, colors[:, :3], opac, ids,
+                            counts)[9].abs().sum() == 0

@@ -148,6 +148,7 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import mojosplat_tpu_torch, mojosplat_tpu_torch.convert\n"
         "import mojosplat_tpu_torch.ops.raster_cuda, mojosplat_tpu_torch.train\n"
+        "import mojosplat_tpu_torch.ops.segsum_cuda\n"
         "import mojosplat_tpu_torch.utils.scenes, mojosplat_tpu_torch.utils.compress\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
@@ -171,15 +172,19 @@ def test_unported_options_raise():
                dict(config=RenderConfig(projection_mode="ut"))):
         with pytest.raises(NotImplementedError):
             render_gaussians(*args, sh_degree=3, **kw)
-    # The cuda route has no backward yet: it refuses inputs that need grad.
+    # Both routes differentiate: the torch route through plain autograd, the
+    # cuda route through the blend backward and the gather's adjoint. The
+    # unported options raise there too, with inputs that need grad.
     grad_means = p["means3d"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        render_gaussians(grad_means, *args[1:], sh_degree=3,
-                         config=RenderConfig(raster_impl="cuda"))
-    with torch.no_grad():
-        render_gaussians(grad_means, *args[1:], sh_degree=3,
-                         config=RenderConfig(raster_impl="cuda"))
-    # The torch route differentiates through plain autograd.
-    img = render_gaussians(grad_means, *args[1:], sh_degree=3)
-    img.sum().backward()
-    assert grad_means.grad is not None and torch.isfinite(grad_means.grad).all()
+    grad_args = [grad_means] + args[1:]
+    for route in ("torch", "cuda"):
+        cfg = RenderConfig(raster_impl=route)
+        for kw in (dict(viewport_rows=(0, 16)), dict(means2d_offset=torch.zeros(8, 2)),
+                   dict(absgrad_sink=torch.zeros(8, 2))):
+            with pytest.raises(NotImplementedError):
+                render_gaussians(*grad_args, sh_degree=3, config=cfg, **kw)
+        grad_means.grad = None
+        img = render_gaussians(*grad_args, sh_degree=3, config=cfg)
+        img.sum().backward()
+        assert grad_means.grad is not None and torch.isfinite(grad_means.grad).all(), route
+        assert bool(grad_means.grad.abs().sum() > 0), route
