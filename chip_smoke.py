@@ -49,8 +49,41 @@ exits nonzero without printing the final result line:
      gaussians (the B2 rule). Prints the median step time, steps/s, peak
      device memory of one step and the drop counters.
 
+  8. 2DGS golden: tests/golden/render_2dgs.npz on the "cuda" route, the
+     image, depth, normal and distortion maps and every parameter's
+     gradient, at the golden tolerances.
+  9. 2DGS kernels: the trained scene read as disks (the first two
+     log-scales, as bench.py does for 2DGS), its slot tables with and
+     without the maps; B6 and B7 against their plain version by the B1
+     rule (the depth moments relative to their row's largest value) and
+     bit-equal with and without the residual; B8 (the maps' variant, which
+     training runs) against its plain version by the B2 rule with a seeded
+     cotangent, bitwise equal across two runs. Times as in phase 4 (the
+     plain versions 3 runs after 1).
+ 10. 2DGS render: the disks at 1920x1080 with the same budgets under
+     no_grad on the "cuda" route, with the maps (B7, B4 and B5 launched,
+     no backward kernel, no residual) and without (B6); drop counters equal
+     to the "torch" route's and the route rule below on every output; the
+     median render time of 10, pixels/s and peak device memory.
+ 11. 2DGS training: 10 train_step_surfel steps with Adam (normal weight
+     0.05, distortion weight 100) from the perturbed raw disks towards the
+     "cuda"-route render of the unperturbed ones. Checks a finite loss that
+     falls, that B3, B4, B5, B7 and B8 were launched in one step,
+     bitwise-equal gradients from two backward passes, and the route rule
+     on the two routes' gradients at a quarter of the resolution and of
+     the disks. Prints the median step time, steps/s and peak memory.
+
+The route rule: the two routes compute the surfel alpha in different
+coordinates (normalised on the "torch" route, intrinsics-primed in the
+kernels), so a few values near a threshold may flip. Each output row is
+scaled by its largest value (at least 1); at most ROUTE_MAX_SHARE of the
+values may differ by more than BLEND_ATOL and none by more than
+ROUTE_MAX_ERR. Gradients: at most ROUTE_GRAD_MAX_SHARE of the values may
+differ by more than GRAD_REL_ATOL of their row's scale and none by more
+than ROUTE_GRAD_MAX_REL of it.
+
 The line before the last is a JSON object with each kernel's launches in
-one training step (and, for B1, B4 and B5, in the phase-5 render), its max
+one training step of its path (B6: in the render without maps), its max
 abs error against the plain version, its times and its bound. The last
 line is {"ok": true, "device": {...}}.
 """
@@ -69,6 +102,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "render_3dgs.npz"
+GOLDEN_2DGS = ROOT / "tests" / "golden" / "render_2dgs.npz"
 GOLDEN_RTOL, GOLDEN_ATOL = 5e-5, 5e-6
 # The blend kernel multiplies T sequentially in f32 where the plain version
 # takes a chunked cumprod; the ~1e-6 difference can flip the alpha-threshold
@@ -92,6 +126,26 @@ HBM_BYTES_PER_S, F32_OPS_PER_S, SFU_EXP_PER_S = 3.35e12, 67e12, 16 * 132 * 1.98e
 # (~48). (The B2 kernel computes the alpha twice to save registers; that
 # is its choice, not work the function needs.)
 B1_OPS_PER_PAIR, B2_OPS_PER_PAIR = 25, 65
+# The surfel kernels, with two exponentials per pair: B6's alpha (the 2x2
+# system 12, its determinant and solve 10 with two divisions, s2 and the
+# filter 9, max, raw and clamp 4, the keep test 1), T update (2), weight
+# (1) and 4-channel accumulate (8); B7 adds two channels (4), the depth z
+# (4) and the two moments (4); B8's adjoint (the maps' variant) replays the
+# alpha and T (~48), then d alpha and the carry (6), cv over 6 channels and
+# the moments (16), the branch and filter terms (8), the solve's adjoint
+# with its two divisions (24), the depth chain (12) and the 18 rows' pixel
+# sums (18).
+B6_OPS_PER_PAIR, B7_OPS_PER_PAIR, B8_OPS_PER_PAIR = 48, 60, 132
+# The route rule of phases 10 and 11 (see above), with room above the
+# readings at the disks' 1080p shapes on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W): renders 1.6e-4 to 2.5e-4 of the values off by more than 1e-5 of
+# the map's scale, at most 4.1e-3; gradients at most 8.9e-6 of the values
+# off by more than 1e-4 of the row's scale, at most 1.8e-3 of it. Both f32
+# routes sit as far from an f64 blend (on a subsampled view of the same
+# scene): the surfel alpha chain turns f32 rounding into threshold flips.
+ROUTE_MAX_SHARE, ROUTE_MAX_ERR = 1e-3, 2e-2
+ROUTE_GRAD_MAX_SHARE, ROUTE_GRAD_MAX_REL = 1e-4, 1e-2
+SURFEL_WEIGHTS = dict(normal_weight=0.05, distortion_weight=100.0)
 H, W = 1080, 1920
 SCENE_BUDGETS = dict(
     tile_size=32, max_tile_span=4, isect_padding_multiplier=8,
@@ -139,42 +193,362 @@ def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
     return dict(bound_ms=t_ops, bound_by="operations")
 
 
-def blend_agreement(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Apply the B1 rule; print the differing count and the max; return it."""
-    diff = (got - want).abs()
+def blend_agreement(name: str, got: torch.Tensor, want: torch.Tensor, scale=1.0,
+                    max_share: float = BLEND_MAX_SHARE, max_err: float = BLEND_MAX_ERR) -> float:
+    """Apply the B1 rule (or another share and max) to |got - want| / scale;
+    print the differing count and the max; return the max abs diff."""
+    raw = (got - want).abs()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
+    diff = raw / scale
     n_diff = int((diff > BLEND_ATOL).sum())
-    max_err = float(diff.max())
+    worst = float(diff.max())
     share = n_diff / diff.numel()
     phase(name, f"{n_diff} of {diff.numel()} values differ by more than "
-          f"{BLEND_ATOL} ({share:.3e}); max abs diff {max_err:.3e}")
-    if share > BLEND_MAX_SHARE or max_err > BLEND_MAX_ERR:
+          f"{BLEND_ATOL} ({share:.3e}); max diff {worst:.3e}, max abs diff "
+          f"{float(raw.max()):.3e}")
+    if share > max_share or worst > max_err:
         raise AssertionError(
-            f"{name}: disagrees with the plain version (share {share:.3e} > "
-            f"{BLEND_MAX_SHARE} or max {max_err:.3e} > {BLEND_MAX_ERR})"
-        )
-    return max_err
+            f"{name}: disagrees (share {share:.3e} > {max_share} or max {worst:.3e} > "
+            f"{max_err})")
+    return float(raw.max())
 
 
-def grad_agreement(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Apply the gradient rule to rows of ``got`` against ``want`` (the first
-    axis indexes rows); print the share, the max; return the max abs diff."""
+def row_scale(x: torch.Tensor, dim) -> torch.Tensor:
+    """Each row's largest magnitude, at least 1 (maps in scene units such as
+    depth and its square are held relative to their scale)."""
+    return x.abs().amax(dim=dim, keepdim=True).clamp(min=1.0)
+
+
+def grad_agreement(name: str, got: torch.Tensor, want: torch.Tensor,
+                   max_share: float = GRAD_MAX_SHARE, max_rel: float = GRAD_MAX_REL) -> float:
+    """Apply the gradient rule (or another share and max) to rows of ``got``
+    against ``want`` (the first axis indexes rows); print the share, the
+    max; return the max abs diff."""
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite gradient")
     got2, want2 = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
     diff = (got2 - want2).abs()
     rel = diff / (want2.abs().amax(dim=1, keepdim=True) + 1e-30)
     n_off = int((rel > GRAD_REL_ATOL).sum())
-    share, max_rel = n_off / rel.numel(), float(rel.max())
+    share, worst = n_off / rel.numel(), float(rel.max())
     phase(name, f"{n_off} of {rel.numel()} values off by more than {GRAD_REL_ATOL} "
-          f"of their row's scale ({share:.3e}); max {max_rel:.3e} of the scale, "
+          f"of their row's scale ({share:.3e}); max {worst:.3e} of the scale, "
           f"max abs diff {float(diff.max()):.3e}")
-    if share > GRAD_MAX_SHARE or max_rel > GRAD_MAX_REL:
+    if share > max_share or worst > max_rel:
         raise AssertionError(
-            f"{name}: disagrees (share {share:.3e} > {GRAD_MAX_SHARE} or max "
-            f"{max_rel:.3e} > {GRAD_MAX_REL} of the row scale)")
+            f"{name}: disagrees (share {share:.3e} > {max_share} or max "
+            f"{worst:.3e} > {max_rel} of the row scale)")
     return float(diff.max())
+
+
+def drop_counters(aux) -> dict:
+    """A RenderAux's binning counters and tile_overflow, as ints."""
+    out = {k: int(v) for k, v in aux.binning._asdict().items()}
+    out["tile_overflow"] = int(aux.raster.tile_overflow)
+    return out
+
+
+def perturbed_leaves(raw: dict, dev) -> dict:
+    """Trainable copies of the raw parameters with seeded numpy noise of
+    standard deviation PERTURB[name] added."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    return {
+        k: torch.from_numpy(v + rng.standard_normal(v.shape, dtype=np.float32) * PERTURB[k])
+        .to(dev).requires_grad_(True)
+        for k, v in raw.items()
+    }
+
+
+def train_steps(step, reset_counters, read_counters, dev):
+    """TRAIN_STEPS calls of ``step()`` (which returns the loss), each timed
+    between two CUDA events and a synchronize. The counters and the peak
+    memory are reset before the first step and read after it. Returns
+    (losses, step ms, the first step's launches, its peak memory)."""
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            launched, peak = read_counters(), torch.cuda.max_memory_allocated(dev)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    return losses, step_ms, launched, peak
+
+
+def check_bitwise(grads_of, name: str) -> None:
+    """Two backward passes on identical inputs give bitwise-equal gradients."""
+    g1, g2 = grads_of(), grads_of()
+    for k in g1:
+        if not torch.equal(g1[k], g2[k]):
+            raise AssertionError(f"{name}: two backward passes differ in d {k}")
+    phase(name, "two backward passes on identical inputs: bitwise equal gradients")
+
+
+def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> None:
+    """Phases 8-11: the 2DGS surfel path. Appends B6, B7 and B8 to
+    ``kernels`` and gives B3, B4 and B5 their launches in a 2DGS step."""
+    from mojosplat_tpu_torch import RenderConfig
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.ops.binning import num_tiles
+    from mojosplat_tpu_torch.ops.expand_cuda import segment_expand_offsets
+    from mojosplat_tpu_torch.ops.raster_cuda import raster_tiles, raster_tiles_bwd
+    from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols
+    from mojosplat_tpu_torch.ops.sh import sh_to_color
+    from mojosplat_tpu_torch.ops.slice_cuda import segment_slice_gather
+    from mojosplat_tpu_torch.ops.surfel_cuda import (
+        raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_bwd_plain,
+        raster_surfel_tiles_fwd, raster_surfel_tiles_plain)
+    from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles, render_surfels
+    from mojosplat_tpu_torch.train import (
+        activate, make_optimizer, surfel_loss, train_step_surfel)
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+
+    dev = torch.device("cuda", 0)
+
+    # ---- 8. The 2DGS golden, forward and gradients, on the "cuda" route
+    with np.load(GOLDEN_2DGS) as z:
+        golden = {k: z[k] for k in z.files}
+    gp = params_from_numpy({k[3:]: v for k, v in golden.items() if k.startswith("in_")}, dev)
+
+    def render_golden(p):
+        return render_surfels(*(p[k] for k in KEYS), gcam, sh_degree=2,
+                              background_color=(0.15, 0.05, 0.25), config=gcfg,
+                              return_depth=True, return_normals=True, return_distortion=True)
+
+    with torch.no_grad():
+        out = [x.cpu().numpy() for x in render_golden(gp)]
+    worst = []
+    for name, got in zip(("image", "depth", "normal", "distortion"), out):
+        want = golden["image" if name == "image" else f"aux_{name}"]
+        atol = GOLDEN_ATOL * (1.0 if name == "image" else float(np.abs(want).max()) + 1.0)
+        np.testing.assert_allclose(got, want, rtol=GOLDEN_RTOL, atol=atol,
+                                   err_msg=f"2DGS golden {name}")
+        worst.append(f"{name} {np.abs(got - want).max():.3e}")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in gp.items()}
+    img, *maps = render_golden(leaves)
+    loss = torch.mean(img**2)
+    for m in maps:
+        loss = loss + 1e-3 * torch.mean(m**2)
+    loss.backward()
+    for k in KEYS:
+        g, want = leaves[k].grad.cpu().numpy(), golden[f"grad_{k}"]
+        np.testing.assert_allclose(g, want, rtol=GOLDEN_RTOL,
+                                   atol=GOLDEN_ATOL * float(np.abs(want).max()),
+                                   err_msg=f"2DGS golden gradient {k}")
+        worst.append(f"d {k} {np.abs(g - want).max():.3e}")
+    phase("2dgs-golden", "max abs diff " + ", ".join(worst) + ": ok")
+
+    # ---- 9. B6, B7 and B8 against their plain versions at the disks' shapes
+    disks = dict(raw, scales=np.ascontiguousarray(raw["scales"][:, :2]))
+    disks_dev = params_from_numpy(disks, dev)
+    params = activate(disks_dev)
+    cfg_cuda = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    # tile_batch bounds the plain blenders' memory; it changes no result.
+    cfg_torch = RenderConfig(raster_impl="torch", tile_batch=256, **SCENE_BUDGETS)
+    cfg_plain = RenderConfig(raster_impl="cuda", tile_batch=128, **SCENE_BUDGETS)
+    ts = cfg_cuda.tile_size
+    th, tw = num_tiles(H, W, ts)
+    n_tiles, P = th * tw, ts * ts
+    geometry = [params[k] for k in ("means3d", "scales", "quats", "opacities")]
+    with torch.no_grad():
+        bins = bin_surfels(*geometry, cam, cfg_cuda)
+        colors = sh_to_color(params["features"], params["means3d"], cam.position, sh_degree)
+        for aux, kid in ((False, "B6"), (True, "B7")):
+            pdata, counts = pack_surfel_tiles(*geometry, colors, cam, bins, cfg_cuda, aux)
+            rows = pdata.shape[0]
+            out = raster_surfel_tiles(pdata, counts, ts, tw, cfg_cuda, aux)
+            ref = raster_surfel_tiles_plain(pdata, counts, ts, tw, cfg_plain, aux)
+            err = blend_agreement(kid, out, ref, row_scale(ref, (0, 2)))
+            out_r, resid = raster_surfel_tiles_fwd(pdata, counts, ts, tw, cfg_cuda, aux, True)
+            if not torch.equal(out_r, out):
+                raise AssertionError(f"{kid}: the output changes when the residual is written")
+            walked = torch.minimum(resid[1], counts[:, None])
+            pairs, slots = int(walked.sum()), int(counts.sum())
+            kernels.append(dict(
+                name=f"{kid} raster_surfel_tiles ({'with' if aux else 'without'} maps)",
+                route="cuda", source="mojosplat_tpu_torch/csrc/surfel_fwd.cu",
+                replaces="mojosplat_tpu/ops/surfel_pallas.py:392",
+                max_abs_err=err,
+                ms=cuda_ms(lambda: raster_surfel_tiles(pdata, counts, ts, tw, cfg_cuda, aux),
+                           20, 3),
+                ms_with_residual=cuda_ms(lambda: raster_surfel_tiles_fwd(
+                    pdata, counts, ts, tw, cfg_cuda, aux, True), 20, 3),
+                plain_ms=cuda_ms(lambda: raster_surfel_tiles_plain(
+                    pdata, counts, ts, tw, cfg_plain, aux), 3, 1),
+                **bound(4 * (rows * slots + n_tiles + out.numel()),
+                        (B7_OPS_PER_PAIR if aux else B6_OPS_PER_PAIR) * pairs, 2 * pairs),
+                library_ms=None,
+            ))
+            phase(kid, f"pdata {tuple(pdata.shape)}, {slots} slots, {pairs} (pixel, slot) "
+                  f"pairs walked; bit-equal with the residual written")
+            del ref, out_r
+
+        # B8, the maps' variant that training runs: pdata's blended slots,
+        # gout, the residual's walked chunks and stop, counts, and d pdata.
+        rng = np.random.default_rng(2)
+        gout = torch.from_numpy(
+            rng.standard_normal((n_tiles, 9, P), dtype=np.float32)).to(dev)
+        d_pdata = raster_surfel_tiles_bwd(pdata, counts, gout, resid, ts, tw, cfg_cuda, True)
+        d_want = raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg_plain, True)
+        err = grad_agreement("B8", d_pdata, d_want)
+        if not torch.equal(raster_surfel_tiles_bwd(pdata, counts, gout, resid, ts, tw,
+                                                   cfg_cuda, True), d_pdata):
+            raise AssertionError("B8: two runs differ")
+        chunk_reads = int(((walked + 15) // 16).sum())
+        kernels.append(dict(
+            name="B8 raster_surfel_tiles_bwd (with maps)", route="cuda",
+            source="mojosplat_tpu_torch/csrc/surfel_bwd.cu",
+            replaces="mojosplat_tpu/ops/surfel_pallas.py:441",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: raster_surfel_tiles_bwd(pdata, counts, gout, resid, ts, tw,
+                                                       cfg_cuda, True), 20, 3),
+            plain_ms=cuda_ms(lambda: raster_surfel_tiles_bwd_plain(
+                pdata, counts, gout, ts, tw, cfg_plain, True), 3, 1),
+            **bound(4 * (rows * slots + gout.numel() + chunk_reads + resid[1].numel()
+                         + n_tiles + d_pdata.numel()), B8_OPS_PER_PAIR * pairs, 2 * pairs),
+            library_ms=None,
+        ))
+        phase("B8", f"d pdata {tuple(d_pdata.shape)} from a seeded gout; two runs bitwise "
+              f"equal")
+        for k in kernels[-3:]:
+            phase("time", f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+                  f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library none")
+        del bins, colors, pdata, counts, out, resid, gout, d_pdata, d_want
+
+    # ---- 10. The main path, serving: render the disks on the "cuda" route
+    counters = {"B4": segment_expand_offsets, "B5": segment_slice_gather, "B1": raster_tiles,
+                "B2": raster_tiles_bwd, "B3": segment_sum_cols, "B8": raster_surfel_tiles_bwd}
+
+    def reset_counters():
+        for fn in counters.values():
+            fn.launches = 0
+        raster_surfel_tiles_fwd.launches = raster_surfel_tiles_fwd.launches_maps = 0
+        raster_surfel_tiles_fwd.residuals = 0
+
+    def read_counters():
+        out = {k: fn.launches for k, fn in counters.items()}
+        out["B6"] = raster_surfel_tiles_fwd.launches
+        out["B7"] = raster_surfel_tiles_fwd.launches_maps
+        out["residuals"] = raster_surfel_tiles_fwd.residuals
+        return out
+
+    def render(p, config, camera=cam, background=BACKGROUND, maps=True, **kw):
+        return render_surfels(*(p[k] for k in KEYS), camera, sh_degree=sh_degree,
+                              background_color=background, config=config, return_depth=maps,
+                              return_normals=maps, return_distortion=maps, **kw)
+
+    def expect(what, launched, launched_set, silent):
+        if min(launched[k] for k in launched_set) < 1 or max(launched[k] for k in silent):
+            raise AssertionError(f"{what}: launches {launched}; expected {launched_set} "
+                                 f"and none of {silent}")
+
+    names = ("image", "depth", "normals", "distortion", "final T")
+    launches = {}
+    with torch.no_grad():
+        for maps in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counters()
+            outs = render(params, cfg_cuda, maps=maps, return_aux=True)
+            torch.cuda.synchronize()
+            launched = read_counters()
+            peak = torch.cuda.max_memory_allocated(dev)
+            kid = "B7" if maps else "B6"
+            launches[kid] = launched[kid]
+            phase("2dgs-render", f"{'with' if maps else 'without'} maps, launches {launched}")
+            expect("2dgs-render", launched, ("B4", "B5", kid),
+                   ("B6" if maps else "B7", "B8", "B1", "B2", "B3", "residuals"))
+            if outs[0].shape != (H, W, 3) or not all(bool(torch.isfinite(x).all())
+                                                     for x in outs[:-1]):
+                raise AssertionError("2dgs-render: bad image shape or non-finite output")
+            counts_cuda = drop_counters(outs[-1])
+            outs_t = render(params, cfg_torch, maps=maps, return_aux=True)
+            counts_torch = drop_counters(outs_t[-1])
+            if counts_torch != counts_cuda:
+                raise AssertionError(f"route counters differ: {counts_torch} vs {counts_cuda}")
+            phase("2dgs-render", "counters " + json.dumps(counts_cuda) + ", both routes")
+            got = list(outs[:-1]) + [outs[-1].raster.final_transmittance]
+            want = list(outs_t[:-1]) + [outs_t[-1].raster.final_transmittance]
+            for name, a, b in zip(names if maps else names[:1] + names[-1:], got, want):
+                blend_agreement(f"2dgs {name} vs torch route", a, b, row_scale(b, (0, 1)),
+                                ROUTE_MAX_SHARE, ROUTE_MAX_ERR)
+            del outs_t, got, want
+            ms = cuda_ms(lambda: render(params, cfg_cuda, maps=maps), 10, 1)
+            torch_ms = cuda_ms(lambda: render(params, cfg_torch, maps=maps), 3, 1)
+            phase("2dgs-render", f"{'with' if maps else 'without'} maps: median of 10 "
+                  f"{ms:.3f} ms ({H * W / (ms / 1e3):.1f} pixels/s), torch route {torch_ms:.3f} "
+                  f"ms (median of 3); peak memory of one cuda-route render {peak} bytes")
+        # train_step_surfel renders on the default (black) background.
+        target = render(params, cfg_cuda, background=None, maps=False)
+
+    # ---- 11. The main path, training: 10 Adam steps on the disks
+    leaves = perturbed_leaves(disks, dev)
+    opt = make_optimizer(leaves, lr=TRAIN_LR)
+    phase("2dgs-train", f"Adam lr {TRAIN_LR}, {json.dumps(SURFEL_WEIGHTS)}; the disks' raw "
+          f"parameters perturbed as in phase 7; target: the cuda-route render of the "
+          f"unperturbed disks")
+    losses, step_ms, launched_step, peak_step = train_steps(
+        lambda: train_step_surfel(leaves, opt, [cam], target[None], sh_degree=sh_degree,
+                                  config=cfg_cuda, **SURFEL_WEIGHTS),
+        reset_counters, read_counters, dev)
+    with torch.no_grad():
+        final = float(surfel_loss(leaves, [cam], target[None], sh_degree, cfg_cuda,
+                                  **SURFEL_WEIGHTS))
+    phase("2dgs-train", "loss per step " + ", ".join(f"{x:.6e}" for x in losses)
+          + f"; after step {TRAIN_STEPS}: {final:.6e}")
+    phase("2dgs-train", f"launches during one step: {launched_step}")
+    if not all(np.isfinite(losses)) or not np.isfinite(final) or not final < losses[0]:
+        raise AssertionError("2dgs-train: the loss is not finite or did not fall")
+    expect("2dgs-train", launched_step, ("B3", "B4", "B5", "B7", "B8"), ("B1", "B2", "B6"))
+    med = statistics.median(step_ms)
+    phase("2dgs-train", f"step time median of {TRAIN_STEPS} {med:.3f} ms (steps "
+          + ", ".join(f"{x:.3f}" for x in step_ms) + f"), {1e3 / med:.3f} steps/s; "
+          f"peak memory of one step {peak_step} bytes")
+
+    def grads_of(p, config, camera, tgt):
+        for t in p.values():
+            t.grad = None
+        surfel_loss(p, [camera], tgt[None], sh_degree, config, **SURFEL_WEIGHTS).backward()
+        return {k: t.grad.clone() for k, t in p.items()}
+
+    check_bitwise(lambda: grads_of(leaves, cfg_cuda, cam, target), "2dgs-train")
+    del opt
+
+    # Both routes at a quarter of the resolution and every 4th disk.
+    small = {k: v.detach()[::4].contiguous() for k, v in leaves.items()}
+    cam_s = scene_camera(H // 4, W // 4, device=dev)
+    with torch.no_grad():
+        target_s = render(activate({k: v[::4] for k, v in disks_dev.items()}), cfg_cuda, cam_s,
+                          background=None, maps=False)
+    routes = {}
+    for name, config in (("cuda", cfg_cuda), ("torch", cfg_torch)):
+        p = {k: v.clone().requires_grad_(True) for k, v in small.items()}
+        routes[name] = grads_of(p, config, cam_s, target_s)
+    for k in routes["cuda"]:
+        grad_agreement(f"2dgs-train d {k} cuda vs torch route ({small['means3d'].shape[0]} "
+                       f"disks, {H // 4}x{W // 4})", routes["cuda"][k][None],
+                       routes["torch"][k][None], ROUTE_GRAD_MAX_SHARE, ROUTE_GRAD_MAX_REL)
+    del routes, small, leaves
+
+    for k in kernels:
+        kid = k["name"][:2]
+        if kid in ("B3", "B4", "B5"):
+            k["launches_2dgs_step"] = launched_step[kid]
+        elif kid == "B6":
+            k["launches"] = launches["B6"]  # its path: the render without maps
+        elif kid in ("B7", "B8"):
+            k["launches"] = launched_step[kid]
+            if kid == "B7":
+                k["launches_render"] = launches["B7"]
 
 
 def main() -> int:
@@ -437,11 +811,6 @@ def main() -> int:
             *(p[k] for k in KEYS), camera, sh_degree=sh_degree, background_color=background,
             config=config, **kw)
 
-    def drop_counters(aux):
-        out = {k: int(v) for k, v in aux.binning._asdict().items()}
-        out["tile_overflow"] = int(aux.raster.tile_overflow)
-        return out
-
     with torch.no_grad():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -491,12 +860,7 @@ def main() -> int:
     phase("golden-grad", "max abs diff " + ", ".join(worst) + ": ok")
 
     # ---- 7. The main path, training: 10 Adam steps on the trained scene
-    rng = np.random.default_rng(TRAIN_SEED)
-    leaves = {
-        k: torch.from_numpy(v + rng.standard_normal(v.shape, dtype=np.float32) * PERTURB[k])
-        .to(dev).requires_grad_(True)
-        for k, v in raw.items()
-    }
+    leaves = perturbed_leaves(raw, dev)
     opt = make_optimizer(leaves, lr=TRAIN_LR)
     phase("train", f"Adam lr {TRAIN_LR}; raw parameters perturbed by N(0, s^2) noise "
           f"(numpy seed {TRAIN_SEED}), s = {json.dumps(PERTURB)}; target: the cuda-route "
@@ -505,25 +869,12 @@ def main() -> int:
         _, aux = render(activate(leaves), cfg_cuda, background=None, return_aux=True)
     phase("train", "counters at the start " + json.dumps(drop_counters(aux)))
 
-    losses, step_ms = [], []
-    for i in range(TRAIN_STEPS):
-        if i == 0:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            reset_counters()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree,
-                          config=cfg_cuda)
-        end.record()
-        torch.cuda.synchronize()
-        if i == 0:
-            launches_train = [fn.launches for fn in counters]
-            peak_train = torch.cuda.max_memory_allocated(dev)
-            residuals_train = raster_tiles_fwd.residuals
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
+    losses, step_ms, launches_train, peak_train = train_steps(
+        lambda: train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree,
+                           config=cfg_cuda),
+        reset_counters, lambda: [fn.launches for fn in counters] + [raster_tiles_fwd.residuals],
+        dev)
+    residuals_train = launches_train.pop()
     with torch.no_grad():
         final = float(l2_image_loss(render(activate(leaves), cfg_cuda, background=None),
                                     target))
@@ -547,13 +898,8 @@ def main() -> int:
         l2_image_loss(render(activate(p), config, camera, background=None), tgt).backward()
         return {k: t.grad.clone() for k, t in p.items()}
 
-    g1 = grads_of(leaves, cfg_cuda, cam, target)
-    g2 = grads_of(leaves, cfg_cuda, cam, target)
-    for k in g1:
-        if not torch.equal(g1[k], g2[k]):
-            raise AssertionError(f"train: two backward passes differ in d {k}")
-    phase("train", "two backward passes on identical inputs: bitwise equal gradients")
-    del g1, g2, opt
+    check_bitwise(lambda: grads_of(leaves, cfg_cuda, cam, target), "train")
+    del opt
 
     # Both routes at a quarter of the resolution and every 4th gaussian: the
     # plain route's autograd keeps every chunk's intermediates.
@@ -572,11 +918,15 @@ def main() -> int:
                        routes["cuda"][k][None], routes["torch"][k][None])
     del routes, small, leaves
 
+    # ---- 8-11. The 2DGS surfel path
+    surfel_phases(raw, sh_degree, cam, gcam, gcfg, kernels)
+
     for k in kernels:
-        k["launches"] = launches_train[
-            ["B4", "B5", "B1", "B2", "B3"].index(k["name"][:2])]
-        if k["name"][:2] in ("B4", "B5", "B1"):
-            k["launches_render"] = launches_render[["B4", "B5", "B1"].index(k["name"][:2])]
+        kid = k["name"][:2]
+        if kid in ("B4", "B5", "B1", "B2", "B3"):
+            k["launches"] = launches_train[["B4", "B5", "B1", "B2", "B3"].index(kid)]
+        if kid in ("B4", "B5", "B1"):
+            k["launches_render"] = launches_render[["B4", "B5", "B1"].index(kid)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

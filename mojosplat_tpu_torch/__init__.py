@@ -1,19 +1,24 @@
-"""mojosplat_tpu_torch: the 3DGS render path in PyTorch with CUDA kernels.
+"""mojosplat_tpu_torch: gaussian splatting in PyTorch with CUDA kernels.
 
 A port of ``mojosplat_tpu`` (JAX/Pallas on a TPU, kept as the reference)
 to PyTorch on an NVIDIA Hopper GPU. Plain tensor code is PyTorch; each
 Pallas kernel on the ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use (``_kernels``).
 
-Ported so far: the forward render of 3DGS with SH colours through
-``render_gaussians`` on the ``"torch"`` (plain) and ``"cuda"`` (kernel)
-routes; the kernels B1 (tile blend forward), B4 (slot expansion) and B5
-(per-tile slot slice). Importing this package never imports jax.
+Ported so far, each on the ``"torch"`` (plain) and ``"cuda"`` (kernel)
+routes, forward and backward: the 3DGS render with SH colours
+(``render_gaussians``) and its ``train.train_step``; the 2DGS surfel render
+with depth, normal and distortion maps (``render_surfels``) and its
+``train.train_step_surfel``. Kernels: B1/B2 (3DGS tile blend and its
+backward), B3 (segment sum), B4 (slot expansion), B5 (per-tile slot slice),
+B6/B7 (surfel tile blend, without and with the maps) and B8 (their
+backward). Importing this package never imports jax.
 """
 
 from .camera import Camera, look_at
 from .config import DEFAULT_CONFIG, RenderConfig, config_from_jax
 from .render import RenderAux, render_gaussians
+from .surfel import render_surfels
 
 __all__ = [
     "Camera",
@@ -22,6 +27,7 @@ __all__ = [
     "DEFAULT_CONFIG",
     "config_from_jax",
     "render_gaussians",
+    "render_surfels",
     "RenderAux",
 ]
 

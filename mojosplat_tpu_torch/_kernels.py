@@ -50,6 +50,8 @@ _SIGNATURES = {
     "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
     "raster_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
+    "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
+    "surfel_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
 }
 
 

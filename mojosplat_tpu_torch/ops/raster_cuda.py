@@ -66,19 +66,34 @@ class _GatherRows(torch.autograd.Function):
         return d_packed, None, None, None
 
 
-def gather_tile_data(means2d, conics, colors, opacities, slot_gids,
-                     counts) -> torch.Tensor:
-    """(6 + cp, n_slots) f32 field-major packed rows for the slot table
-    ``slot_gids``, which holds n_slots / n_tiles slots for each of the
-    tiles whose ``counts`` (n_tiles,) are given.
+def gather_slots(packed, slot_gids, counts, nfields: int) -> torch.Tensor:
+    """Columns ``slot_gids`` (clamped to [0, N)) of the field-major
+    ``packed`` (rows, N): (rows, n_slots), n_slots / n_tiles slots for each
+    of the tiles whose ``counts`` (n_tiles,) are given.
 
     Slots past a tile's count hold clamped ids; the blend never reads them,
     and the adjoint drops their cotangent (the blend's backward writes
     zeros there) where the reference sums those zeros into the gaussian
     their clamped id names. No sum changes, and the padding past the sorted
     list, which clamps to one id, makes no single long segment for the
-    segment sum.
+    segment sum. Only the first ``nfields`` rows are routed back; the rest
+    are zero pad.
     """
+    N = packed.shape[1]
+    safe = slot_gids.reshape(-1).clamp(0, max(N - 1, 0)).to(torch.int64)
+    if torch.is_grad_enabled() and packed.requires_grad:
+        cap = safe.shape[0] // max(counts.shape[0], 1)
+        live = torch.arange(cap, device=counts.device)[None, :] < counts[:, None]
+        keys = torch.where(live.reshape(-1), safe, N).to(torch.int32)
+        return _GatherRows.apply(packed, safe, keys, nfields)
+    return packed.index_select(1, safe)
+
+
+def gather_tile_data(means2d, conics, colors, opacities, slot_gids,
+                     counts) -> torch.Tensor:
+    """(6 + cp, n_slots) f32 field-major packed rows x, y, conic a/b/c,
+    opacity and cp = max(4, C) channels for the slot table ``slot_gids``
+    (``gather_slots``)."""
     N = means2d.shape[0]
     C = colors.shape[-1]
     cp = max(_MIN_CHANNELS, C)
@@ -89,14 +104,7 @@ def gather_tile_data(means2d, conics, colors, opacities, slot_gids,
     ] + [colors[:, c] for c in range(C)]
     cols = [c.to(torch.float32) for c in cols]
     cols += [torch.zeros((N,), dtype=torch.float32, device=means2d.device)] * (cp - C)
-    packed = torch.stack(cols, dim=0)  # (6 + cp, N)
-    safe = slot_gids.reshape(-1).clamp(0, max(N - 1, 0)).to(torch.int64)
-    if torch.is_grad_enabled() and packed.requires_grad:
-        cap = safe.shape[0] // max(counts.shape[0], 1)
-        live = torch.arange(cap, device=counts.device)[None, :] < counts[:, None]
-        keys = torch.where(live.reshape(-1), safe, N).to(torch.int32)
-        return _GatherRows.apply(packed, safe, keys, 6 + C)
-    return packed.index_select(1, safe)
+    return gather_slots(torch.stack(cols, dim=0), slot_gids, counts, 6 + C)
 
 
 def _geometry(tiles, pd, k0, K, counts, ts, tw, config):
@@ -215,24 +223,30 @@ def raster_tiles_bwd_plain(pdata, counts, gout, ts: int, tw: int,
     return d_pd.reshape(rows, n_tiles * cap)
 
 
-def _check_blend_args(pdata, counts, ts: int) -> int:
-    """Validate the blend kernels' inputs; returns cap."""
+def check_tiles(pdata, counts, ts: int) -> int:
+    """Validate the tile blend kernels' common inputs; returns cap."""
     _kernels.require(pdata, "pdata", torch.float32, 2)
     _kernels.require(counts, "counts", torch.int32, 1)
     if counts.device != pdata.device:
         raise ValueError("pdata and counts must be on one device")
-    rows = pdata.shape[0]
     n_tiles = counts.shape[0]
-    if not _MIN_CHANNELS <= rows - 6 <= MAX_CHANNELS:
-        raise ValueError(
-            f"the blend kernels take {_MIN_CHANNELS}..{MAX_CHANNELS} channels, "
-            f"got {rows - 6}"
-        )
     if ts * ts > 1024:
         raise ValueError(f"the blend kernels take tile_size <= 32, got {ts}")
     if n_tiles == 0 or pdata.shape[1] % n_tiles:
         raise ValueError(f"pdata width {pdata.shape[1]} is not n_tiles * cap")
     return pdata.shape[1] // n_tiles
+
+
+def _check_blend_args(pdata, counts, ts: int) -> int:
+    """Validate the 3DGS blend kernels' inputs; returns cap."""
+    cap = check_tiles(pdata, counts, ts)
+    rows = pdata.shape[0]
+    if not _MIN_CHANNELS <= rows - 6 <= MAX_CHANNELS:
+        raise ValueError(
+            f"the blend kernels take {_MIN_CHANNELS}..{MAX_CHANNELS} channels, "
+            f"got {rows - 6}"
+        )
+    return cap
 
 
 def raster_tiles_fwd(pdata, counts, ts: int, tw: int, config: RenderConfig,

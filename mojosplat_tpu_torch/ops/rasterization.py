@@ -16,7 +16,9 @@ Two routes:
     (n_tiles, tile_capacity) gaussian-id table is scattered from the sorted
     lists, and chunks of ``chunk_size`` slots are blended with a cumulative
     product along the chunk (``_blend_chunk``), all tiles at once (or
-    ``tile_batch`` at a time).
+    ``tile_batch`` at a time). The blender (``rasterize_torch_generic``)
+    takes the alpha model as a function: the 3DGS conic here, the 2DGS
+    ray/disk response in ``surfel.py``.
   - ``"cuda"``: the reference's Pallas route. The slot table is cut from
     the sorted list (kernel B5, ``slice_cuda``), the slot fields are packed
     with one gather, and the blend kernel B1 (``raster_cuda``) walks each
@@ -105,17 +107,24 @@ def _chunk_transmittance(T_in, done_in, alpha, eps):
     return applied, eff_alpha, excl, trans, done_out
 
 
-def _blend_chunk(T_in, done_in, accum_in, alpha, colors_chunk, eps):
+def _blend_chunk(T_in, done_in, accum_in, alpha, colors_chunk, eps,
+                 vals=None, accum_vals_in=None):
     """One chunk of the front-to-back recurrence, vectorized over pixels.
 
     T_in, done_in: (..., P); accum_in: (..., P, C); alpha: (..., P, K)
-    already zeroed for skipped slots; colors_chunk: (..., K, C).
-    Returns updated (T, done, accum).
+    already zeroed for skipped slots; colors_chunk: (..., K, C). With
+    ``vals`` (..., P, K, V), per-pixel values of each slot (a surfel's
+    ray-intersection depth), blended with the same weights into
+    ``accum_vals_in`` (..., P, V).
+    Returns updated (T, done, accum[, accum_vals]).
     """
     _, eff_alpha, excl, trans, done_out = _chunk_transmittance(T_in, done_in, alpha, eps)
     weights = eff_alpha * (T_in[..., None] * excl)
     accum = accum_in + torch.matmul(weights, colors_chunk)
-    return T_in * trans, done_out, accum
+    if vals is None:
+        return T_in * trans, done_out, accum
+    accum_vals = accum_vals_in + torch.einsum("...pk,...pkv->...pv", weights, vals)
+    return T_in * trans, done_out, accum, accum_vals
 
 
 def build_tile_table(binning: BinningResult, tile_capacity: int):
@@ -186,28 +195,41 @@ def rasterize_gaussians(
         return image, RasterAux(final_transmittance=final_T[..., 0], tile_overflow=tile_overflow)
     if config.raster_impl != "torch":
         raise ValueError(f"Unknown raster_impl: {config.raster_impl!r}")
-    return _rasterize_torch(
-        means2d, conics, colors, opacities, background, binning,
-        img_height, img_width, config,
-    )
+
+    def alpha_fn(px, py, safe, valid):
+        return _pixel_alphas(px, py, means2d[safe], conics[safe], opacities[safe], valid,
+                             config)
+
+    return rasterize_torch_generic(alpha_fn, means2d.shape[0], colors, background, binning,
+                                   img_height, img_width, config)
 
 
-def _rasterize_torch(means2d, conics, colors, opacities, background, binning,
-                     img_height, img_width, config):
-    """The plain tiled blender (the reference's ``rasterize_xla_generic``
-    with the 3DGS conic alpha model)."""
+def rasterize_torch_generic(alpha_fn, n: int, colors, background, binning,
+                            img_height: int, img_width: int, config: RenderConfig,
+                            n_pixel_values: int = 0):
+    """The plain tiled blender with a pluggable per-primitive alpha model
+    (the reference's ``rasterize_xla_generic``).
+
+    ``alpha_fn(px, py, safe_ids, valid)`` gets the pixel centres (G, P) of
+    a group of G tiles and the clamped ids and validity (G, K) of one chunk
+    of their slots, and returns the (G, P, K) alphas, zeroed where skipped.
+    With ``n_pixel_values = V > 0`` it returns ``(alpha, vals (G, P, K, V))``
+    instead: per-pixel values of each slot, blended with the same weights
+    and appended to the image as V extra channels (zero background).
+    Returns the (H, W, C + V) image and ``RasterAux``.
+    """
     ts = config.tile_size
     K = config.chunk_size
     th, tw = num_tiles(img_height, img_width, ts)
     n_tiles = th * tw
-    N = means2d.shape[0]
     C = colors.shape[-1]
+    V = n_pixel_values
     dtype = colors.dtype
     device = colors.device
     P = ts * ts
 
     table, tile_overflow = build_tile_table(binning, config.tile_capacity)
-    out_tiles = torch.empty((n_tiles, P, C), dtype=dtype, device=device)
+    out_tiles = torch.empty((n_tiles, P, C + V), dtype=dtype, device=device)
     T_tiles = torch.empty((n_tiles, P), dtype=dtype, device=device)
     group = config.tile_batch or max(n_tiles, 1)
     for g0 in range(0, n_tiles, group):
@@ -217,16 +239,19 @@ def _rasterize_torch(means2d, conics, colors, opacities, background, binning,
         T = torch.ones((G, P), dtype=dtype, device=device)
         done = torch.zeros((G, P), dtype=torch.bool, device=device)
         acc = torch.zeros((G, P, C), dtype=dtype, device=device)
+        acc_v = torch.zeros((G, P, V), dtype=dtype, device=device)
         for k0 in range(0, config.tile_capacity, K):
             gids = table[g0 : g0 + G, k0 : k0 + K]  # (G, K)
-            safe = gids.clamp(0, max(N - 1, 0)).to(torch.int64)
-            alpha = _pixel_alphas(
-                px, py, means2d[safe], conics[safe], opacities[safe], gids >= 0, config
-            )
-            T, done, acc = _blend_chunk(
-                T, done, acc, alpha, colors[safe], config.transmittance_eps
-            )
-        out_tiles[g0 : g0 + G] = acc + T[..., None] * background
+            safe = gids.clamp(0, max(n - 1, 0)).to(torch.int64)
+            if V:
+                alpha, vals = alpha_fn(px, py, safe, gids >= 0)
+                T, done, acc, acc_v = _blend_chunk(
+                    T, done, acc, alpha, colors[safe], config.transmittance_eps, vals, acc_v)
+            else:
+                alpha = alpha_fn(px, py, safe, gids >= 0)
+                T, done, acc = _blend_chunk(T, done, acc, alpha, colors[safe],
+                                            config.transmittance_eps)
+        out_tiles[g0 : g0 + G] = torch.cat([acc + T[..., None] * background, acc_v], dim=-1)
         T_tiles[g0 : g0 + G] = T
 
     image = _assemble(out_tiles.transpose(1, 2), th, tw, ts, img_height, img_width)

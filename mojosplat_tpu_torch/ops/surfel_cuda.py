@@ -1,0 +1,383 @@
+"""Surfel tile blend forward and backward (kernels B6, B7, B8) and their gather.
+
+Port of ``mojosplat_tpu.ops.surfel_pallas``. Field packing, field-major
+(rows, n_tiles * cap), 16 rows or 18 with the maps:
+
+    0-2   qc0', qc1', qc2      qc0' = fx qc0 + cx qc2 (y likewise)
+    3-5   a0',  a1',  a2       a0' = fx a0 + cx a2, a1' = fy a1 + cy a2
+    6-8   b0',  b1',  b2
+    9-10  c2x,  c2y            the projected centre (pixels)
+    11    opacity
+    12-14 rgb
+    15    zero pad             (with the maps: 15-17 camera-frame normals)
+
+The primes fold the intrinsics into the rows (scaling the 2x2 system's
+rows by fx and fy leaves its solution unchanged), so the kernels see only
+pixel coordinates. Per (pixel, slot):
+
+    A11 = a0' - px a2   A12 = b0' - px b2   r1 = px qc2 - qc0'
+    A21 = a1' - py a2   A22 = b1' - py b2   r2 = py qc2 - qc1'
+    (u, v) = A^-1 r where |det A| > 1e-9;  g_surf = exp(-min(u^2 + v^2, 1e4) / 2)
+    g_filt = exp(-((px - c2x)^2 + (py - c2y)^2) / (2 * 0.5))
+    alpha  = min(opacity * max(g_surf, g_filt), max_alpha), kept iff >= threshold
+
+and the front-to-back rule of the 3DGS blend. With the maps the blend also
+accumulates the intersection-depth moments m1 = sum(w z), m2 = sum(w z^2),
+z = qc2 + u a2 + v b2 (qc2 where the filter wins or the solve fails).
+
+  - ``gather_surfel_tile_data`` stacks the primed columns and gathers the
+    slot table with one ``index_select``; its adjoint is the 3DGS gather's
+    (``raster_cuda.gather_slots``: stable sort + segment sum B3).
+  - ``raster_surfel_tiles`` blends: (n_tiles, 5, ts * ts) channel-major,
+    rgb, the blended pad row, T; with the maps (n_tiles, 9, ts * ts), rgb,
+    normals, m1, m2, T. Differentiable with respect to ``pdata``: the
+    forward is B6 or B7 (``csrc/surfel_fwd.cu``), which then also writes
+    the backward's residual, and the backward is B8 (``csrc/surfel_bwd.cu``).
+
+On CPU tensors the wrappers run the plain versions, which port the Pallas
+kernels' math (``_surfel_chunk_geometry``, ``_fwd_kernel``,
+``_bwd_kernel``) over chunks of ``chunk_size`` slots. On a CUDA tensor a
+wrapper launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from ..camera import Camera
+from ..config import RenderConfig
+from .raster_cuda import RESID_CHUNK, check_tiles, gather_slots
+from .rasterization import _blend_chunk, _chunk_transmittance, tile_pixel_centers
+
+_SROWS, _AUX_ROWS = 16, 18
+_FILTER_SIGMA2 = 0.5  # as surfel._FILTER_SIGMA2
+_DET_EPS = 1e-9
+_S2_MAX = 1e4
+
+
+def primed_surfel_columns(columns, camera: Camera) -> tuple:
+    """Fold the pinhole intrinsics into the 12 surfel columns of
+    ``surfel.surfel_alpha_columns`` (see the module docstring)."""
+    (qcx, qcy, qcz, ax, ay, az, bx, by, bz, c2x, c2y, op) = columns
+
+    def prime(x, y, z):
+        return camera.fx * x + camera.cx * z, camera.fy * y + camera.cy * z, z
+
+    return (*prime(qcx, qcy, qcz), *prime(ax, ay, az), *prime(bx, by, bz), c2x, c2y, op)
+
+
+def gather_surfel_tile_data(columns, slot_gids, counts) -> torch.Tensor:
+    """(16 or 18, n_slots) f32 packed rows of the (N,) ``columns`` [primed
+    qc(3), a(3), b(3), c2(2), opacity, rgb(3), and normals(3) with the
+    maps] for the slot table ``slot_gids`` of tiles with ``counts``; a
+    16th zero row pads the columns without the maps."""
+    nconst = len(columns)
+    N = columns[0].shape[0]
+    cols = [c.to(torch.float32) for c in columns]
+    cols += [torch.zeros((N,), dtype=torch.float32, device=cols[0].device)] * (_SROWS - nconst)
+    return gather_slots(torch.stack(cols, dim=0), slot_gids, counts, nconst)
+
+
+def _fms(a, x, b):
+    """a - x * b with the product kept exact (in f64), as the kernels'
+    fused multiply-add computes it: the primed differences cancel where
+    the pixel is far from the principal point, and the reference's
+    compiler fuses them too."""
+    return (a.double() - x.double() * b.double()).float()
+
+
+def _surfel_geometry(tiles, pd, k0, K, counts, ts, tw, config, aux):
+    """Chunk k0 of the given tiles: its slot rows (rows, G, K), the alphas
+    (G, P, K) zeroed where skipped, and the terms the backward reads (the
+    Pallas kernels' ``_surfel_chunk_geometry``)."""
+    px, py = tile_pixel_centers(tiles, ts, tw, torch.float32)
+    px, py = px[..., None], py[..., None]  # (G, P, 1)
+    chunk = pd[:, tiles, k0 : k0 + K]  # (rows, G, K)
+    lane = torch.arange(chunk.shape[-1], device=pd.device)
+    valid = (k0 + lane)[None, :] < counts[tiles, None]  # (G, K)
+    qc0, qc1, qc2, a0, a1, a2, b0, b1, b2, c2x, c2y, op = (
+        chunk[r][:, None, :] for r in range(12))  # each (G, 1, K)
+
+    A11 = _fms(a0, px, a2)  # (G, P, K)
+    A12 = _fms(b0, px, b2)
+    A21 = _fms(a1, py, a2)
+    A22 = _fms(b1, py, b2)
+    r1 = -_fms(qc0, px, qc2)
+    r2 = -_fms(qc1, py, qc2)
+    det = A11 * A22 - A12 * A21
+    ok = torch.abs(det) > _DET_EPS
+    det_safe = torch.where(ok, det, torch.ones_like(det))
+    u = (r1 * A22 - r2 * A12) / det_safe
+    v = (A11 * r2 - A21 * r1) / det_safe
+    s2 = torch.clamp(u * u + v * v, max=_S2_MAX)
+    g_surf = torch.where(ok, torch.exp(-0.5 * s2), torch.zeros_like(s2))
+    dx = px - c2x
+    dy = py - c2y
+    g_filt = torch.exp(-(dx * dx + dy * dy) / (2.0 * _FILTER_SIGMA2))
+    gm = torch.maximum(g_surf, g_filt)
+    raw = op * gm
+    alpha = torch.clamp(raw, max=config.max_alpha)
+    keep = (alpha >= config.alpha_threshold) & valid[:, None, :]
+    alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+    geo = dict(A11=A11, A12=A12, A21=A21, A22=A22, det=det_safe, ok=ok, u=u, v=v, s2=s2,
+               g_surf=g_surf, g_filt=g_filt, gm=gm, dx=dx, dy=dy, op=op, raw=raw, keep=keep,
+               px=px, py=py, a2=a2, b2=b2)
+    if aux:
+        geo["use_surf"] = ok & (g_surf >= g_filt)
+        geo["z"] = torch.where(geo["use_surf"], qc2 + u * a2 + v * b2, qc2)
+    return chunk, alpha, geo
+
+
+def _layout(pdata, counts, aux):
+    """(rows, n_tiles, cap, ncc, oc): ncc constant channels are blended
+    (rgb + pad, or rgb + normals), oc output rows."""
+    rows = pdata.shape[0]
+    if rows != (_AUX_ROWS if aux else _SROWS):
+        raise ValueError(f"aux={aux} takes {_AUX_ROWS if aux else _SROWS} pdata rows, got {rows}")
+    n_tiles = counts.shape[0]
+    cap = pdata.shape[1] // max(n_tiles, 1)
+    return rows, n_tiles, cap, rows - 12, 9 if aux else 5
+
+
+def raster_surfel_tiles_plain(pdata, counts, ts: int, tw: int, config: RenderConfig,
+                              aux: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the surfel blend forward (B6, or B7 with
+    ``aux``): the chunked-cumprod recurrence of the 3DGS plain blend over
+    ``tile_batch`` tiles at a time."""
+    rows, n_tiles, cap, ncc, oc = _layout(pdata, counts, aux)
+    P, K = ts * ts, config.chunk_size
+    dev = pdata.device
+    pd = pdata.reshape(rows, n_tiles, cap)
+    out = torch.empty((n_tiles, oc, P), dtype=torch.float32, device=dev)
+    group = config.tile_batch or max(n_tiles, 1)
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=dev)
+        G = tiles.shape[0]
+        T = torch.ones((G, P), dtype=torch.float32, device=dev)
+        done = torch.zeros((G, P), dtype=torch.bool, device=dev)
+        acc = torch.zeros((G, P, ncc), dtype=torch.float32, device=dev)
+        acc_v = torch.zeros((G, P, 2 if aux else 0), dtype=torch.float32, device=dev)
+        for k0 in range(0, cap, K):
+            chunk, alpha, geo = _surfel_geometry(tiles, pd, k0, K, counts, ts, tw, config, aux)
+            cols = chunk[12:].permute(1, 2, 0)  # (G, K, ncc)
+            if aux:
+                z = geo["z"]
+                T, done, acc, acc_v = _blend_chunk(T, done, acc, alpha, cols,
+                                                   config.transmittance_eps,
+                                                   torch.stack([z, z * z], dim=-1), acc_v)
+            else:
+                T, done, acc = _blend_chunk(T, done, acc, alpha, cols,
+                                            config.transmittance_eps)
+        out[g0 : g0 + G] = torch.cat([acc, acc_v, T[..., None]], dim=-1).transpose(1, 2)
+    return out
+
+
+def raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts: int, tw: int,
+                                  config: RenderConfig, aux: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the surfel blend backward (B8): d pdata
+    (rows, n_tiles * cap) from the output cotangent ``gout`` (n_tiles, oc,
+    ts * ts).
+
+    The Pallas ``_bwd_kernel`` written out over groups of ``tile_batch``
+    tiles: a forward walk records each chunk's incoming transmittance and
+    done latch; the chunks are then walked in reverse carrying the
+    transmittance cotangent, with ``d_eff = cv T_before - (S + gT T_out) /
+    (1 - eff)``, then the hand-derived adjoint of the surfel response:
+    the low-pass branch to the centre, the 2x2 solve (``d_r = A^-T d_q``,
+    ``d_A = -d_r q^T``) and, with the maps, the intersection depth z.
+    """
+    rows, n_tiles, cap, ncc, oc = _layout(pdata, counts, aux)
+    P, K = ts * ts, config.chunk_size
+    eps = config.transmittance_eps
+    dev = pdata.device
+    pd = pdata.reshape(rows, n_tiles, cap)
+    d_pd = torch.zeros((rows, n_tiles, cap), dtype=torch.float32, device=dev)
+    group = config.tile_batch or max(n_tiles, 1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=dev)
+        G = tiles.shape[0]
+        T = torch.ones((G, P), dtype=torch.float32, device=dev)
+        done = torch.zeros((G, P), dtype=torch.bool, device=dev)
+        history = []
+        for k0 in range(0, cap, K):
+            history.append((T, done))
+            _, alpha, _ = _surfel_geometry(tiles, pd, k0, K, counts, ts, tw, config, aux)
+            *_, trans, done = _chunk_transmittance(T, done, alpha, eps)
+            T = T * trans
+
+        g = gout[g0 : g0 + G]
+        v_cot = g[:, :ncc, :].transpose(1, 2)  # (G, P, ncc)
+        if aux:
+            v_z, v_z2 = g[:, 6, :, None], g[:, 7, :, None]  # (G, P, 1)
+        gt = g[:, oc - 1, :]  # (G, P)
+        for i in reversed(range(len(history))):
+            k0 = i * K
+            t_in, done_in = history[i]
+            chunk, alpha, geo = _surfel_geometry(tiles, pd, k0, K, counts, ts, tw, config, aux)
+            applied, eff, excl, trans, _ = _chunk_transmittance(t_in, done_in, alpha, eps)
+            ome = 1.0 - eff
+            t_before = t_in[..., None] * excl
+            w = eff * t_before
+            t_out = t_in * trans
+
+            cols = chunk[12:].permute(1, 2, 0)  # (G, K, ncc)
+            cv = torch.matmul(v_cot, cols.transpose(1, 2))  # (G, P, K)
+            if aux:
+                z = geo["z"]
+                cv = cv + v_z * z + v_z2 * z * z
+            d_cols = torch.matmul(w.transpose(1, 2), v_cot)  # (G, K, ncc)
+            q = w * cv
+            rev = torch.cumsum(q.flip(-1), dim=-1).flip(-1)
+            S = torch.cat([rev[..., 1:], torch.zeros_like(rev[..., :1])], dim=-1)
+            d_eff = cv * t_before - (S + (gt * t_out)[..., None]) / ome
+            d_alpha = torch.where(applied, d_eff, zero)
+            d_raw = torch.where(geo["keep"] & (geo["raw"] < config.max_alpha), d_alpha, zero)
+
+            d_op = d_raw * geo["gm"]
+            d_gm = d_raw * geo["op"]
+            surf_sel = geo["g_surf"] >= geo["g_filt"]
+            d_gsurf = torch.where(surf_sel, d_gm, zero)
+            d_gfilt = torch.where(surf_sel, zero, d_gm)
+            # The low-pass branch -> the projected centre.
+            gf = d_gfilt * geo["g_filt"] / _FILTER_SIGMA2
+            d_c2x = gf * geo["dx"]
+            d_c2y = gf * geo["dy"]
+            # The surface branch -> the 2x2 solve.
+            d_s2 = torch.where(geo["ok"] & (geo["s2"] < _S2_MAX),
+                               -0.5 * d_gsurf * geo["g_surf"], zero)
+            u, v = geo["u"], geo["v"]
+            d_u = d_s2 * 2.0 * u
+            d_v = d_s2 * 2.0 * v
+            if aux:
+                # z = qc2 + u a2 + v b2 on the surface branch, qc2 otherwise.
+                d_z = w * (v_z + 2.0 * z * v_z2)
+                d_zs = torch.where(geo["use_surf"], d_z, zero)
+                d_u = d_u + d_zs * geo["a2"]
+                d_v = d_v + d_zs * geo["b2"]
+            det = geo["det"]
+            d_r1 = (geo["A22"] * d_u - geo["A21"] * d_v) / det
+            d_r2 = (-geo["A12"] * d_u + geo["A11"] * d_v) / det
+            d_A11 = -d_r1 * u
+            d_A12 = -d_r1 * v
+            d_A21 = -d_r2 * u
+            d_A22 = -d_r2 * v
+            px, py = geo["px"], geo["py"]
+            d_qc2 = px * d_r1 + py * d_r2
+            d_a2 = -px * d_A11 - py * d_A21
+            d_b2 = -px * d_A12 - py * d_A22
+            if aux:
+                d_qc2 = d_qc2 + d_z
+                d_a2 = d_a2 + d_zs * u
+                d_b2 = d_b2 + d_zs * v
+            d_geo = torch.stack([-d_r1, -d_r2, d_qc2, d_A11, d_A21, d_a2, d_A12, d_A22, d_b2,
+                                 d_c2x, d_c2y, d_op]).sum(dim=2)  # (12, G, K)
+            d_pd[:12, g0 : g0 + G, k0 : k0 + K] = d_geo
+            d_pd[12:, g0 : g0 + G, k0 : k0 + K] = d_cols.permute(2, 0, 1)
+            gt = torch.sum(eff * excl * cv, dim=-1) + gt * trans
+    return d_pd.reshape(rows, n_tiles * cap)
+
+
+def _check_surfel_args(pdata, counts, ts: int, aux: bool) -> int:
+    cap = check_tiles(pdata, counts, ts)
+    _layout(pdata, counts, aux)
+    return cap
+
+
+def raster_surfel_tiles_fwd(pdata, counts, ts: int, tw: int, config: RenderConfig,
+                            aux: bool, residual: bool):
+    """(out, residual): B6 (B7 with ``aux``) on a CUDA tensor, the plain
+    version on a CPU tensor (whose residual is None). The residual, written
+    only when asked for, is (tchunk, stop) as B1 writes it. Counts a launch
+    of B6 in ``raster_surfel_tiles_fwd.launches``, of B7 in
+    ``raster_surfel_tiles_fwd.launches_maps``, and a written residual in
+    ``raster_surfel_tiles_fwd.residuals``."""
+    if pdata.device.type == "cpu":
+        return raster_surfel_tiles_plain(pdata, counts, ts, tw, config, aux), None
+    cap = _check_surfel_args(pdata, counts, ts, aux)
+    rows, n_tiles, P = pdata.shape[0], counts.shape[0], ts * ts
+    out = torch.empty((n_tiles, 9 if aux else 5, P), dtype=torch.float32, device=pdata.device)
+    resid = None
+    if residual:
+        raster_surfel_tiles_fwd.residuals += 1
+        resid = (
+            torch.empty((n_tiles, -(-cap // RESID_CHUNK), P), dtype=torch.float32,
+                        device=pdata.device),
+            torch.empty((n_tiles, P), dtype=torch.int32, device=pdata.device),
+        )
+    _kernels.launch(
+        "surfel_fwd_launch", pdata.device, pdata.data_ptr(), rows, n_tiles, cap,
+        counts.data_ptr(), ts, tw, config.alpha_threshold, config.max_alpha,
+        config.transmittance_eps, out.data_ptr(),
+        resid[0].data_ptr() if resid else None, resid[1].data_ptr() if resid else None,
+    )
+    if aux:
+        raster_surfel_tiles_fwd.launches_maps += 1
+    else:
+        raster_surfel_tiles_fwd.launches += 1
+    return out, resid
+
+
+def raster_surfel_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
+                            config: RenderConfig, aux: bool) -> torch.Tensor:
+    """d pdata of the surfel blend: B8 on CUDA tensors, given the forward
+    kernel's residual; ``raster_surfel_tiles_bwd_plain`` on CPU tensors
+    (residual None). Counts a launch in ``raster_surfel_tiles_bwd.launches``."""
+    if pdata.device.type == "cpu":
+        return raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, config, aux)
+    cap = _check_surfel_args(pdata, counts, ts, aux)
+    rows, n_tiles, P = pdata.shape[0], counts.shape[0], ts * ts
+    gout = gout.contiguous()
+    _kernels.require(gout, "gout", torch.float32, 3)
+    oc = 9 if aux else 5
+    if tuple(gout.shape) != (n_tiles, oc, P):
+        raise ValueError(f"gout must be {(n_tiles, oc, P)}, got {tuple(gout.shape)}")
+    if residual is None:
+        raise ValueError("the backward kernel needs the forward kernel's residual")
+    tchunk, stop = residual
+    _kernels.require(tchunk, "tchunk", torch.float32, 3)
+    _kernels.require(stop, "stop", torch.int32, 2)
+    if tuple(tchunk.shape) != (n_tiles, -(-cap // RESID_CHUNK), P) or \
+            tuple(stop.shape) != (n_tiles, P):
+        raise ValueError("the residual does not match pdata's shapes")
+    d_pdata = torch.empty_like(pdata)
+    _kernels.launch(
+        "surfel_bwd_launch", pdata.device, pdata.data_ptr(), rows, n_tiles, cap,
+        counts.data_ptr(), ts, tw, config.alpha_threshold, config.max_alpha,
+        gout.data_ptr(), tchunk.data_ptr(), stop.data_ptr(), d_pdata.data_ptr(),
+    )
+    raster_surfel_tiles_bwd.launches += 1
+    return d_pdata
+
+
+class _RasterSurfelTiles(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pdata, counts, ts, tw, config, aux):
+        out, resid = raster_surfel_tiles_fwd(pdata, counts, ts, tw, config, aux, residual=True)
+        ctx.save_for_backward(pdata, counts, *(resid or ()))
+        ctx.args = (ts, tw, config, aux)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        pdata, counts, *resid = ctx.saved_tensors
+        d_pdata = raster_surfel_tiles_bwd(pdata, counts, gout, tuple(resid) or None, *ctx.args)
+        return d_pdata, None, None, None, None, None
+
+
+def raster_surfel_tiles(pdata, counts, ts: int, tw: int, config: RenderConfig,
+                        aux: bool = False) -> torch.Tensor:
+    """Blend each tile's surfel slots: (n_tiles, 5, ts * ts), or (n_tiles,
+    9, ts * ts) with ``aux`` (the maps). Differentiable with respect to
+    ``pdata``; when no gradient is needed the forward kernel writes no
+    residual."""
+    if torch.is_grad_enabled() and pdata.requires_grad:
+        return _RasterSurfelTiles.apply(pdata, counts, ts, tw, config, aux)
+    return raster_surfel_tiles_fwd(pdata, counts, ts, tw, config, aux, residual=False)[0]
+
+
+raster_surfel_tiles_fwd.launches = 0
+raster_surfel_tiles_fwd.launches_maps = 0
+raster_surfel_tiles_fwd.residuals = 0
+raster_surfel_tiles_bwd.launches = 0

@@ -18,6 +18,7 @@ from .camera import Camera
 from .config import DEFAULT_CONFIG, RenderConfig
 from .ops.sh import num_sh_bases
 from .render import render_gaussians
+from .surfel import normal_consistency_terms, render_surfels
 
 
 def init_gaussians(
@@ -197,6 +198,71 @@ def train_step(
     loss = loss / len(cameras)
     if loss_extra is not None:
         loss = loss + loss_extra(params)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def surfel_loss(
+    params: Mapping[str, torch.Tensor],
+    cameras: Sequence[Camera],
+    targets: torch.Tensor,  # (B, H, W, 3)
+    sh_degree: int | None = None,
+    config: RenderConfig = DEFAULT_CONFIG,
+    normal_weight: float = 0.0,
+    distortion_weight: float = 0.0,
+) -> torch.Tensor:
+    """The 2DGS training loss of the raw ``params`` over a batch of views:
+    ``sum (img - target)^2 / targets.numel()``, plus
+    ``distortion_weight * sum(distortion) / (targets.numel() // 3)``, plus
+    ``normal_weight * sum(num) / max(sum(den), 1)`` of
+    ``normal_consistency_terms``, each sum taken over all views before the
+    ratio (the reference's ``train_step_sharded_surfel`` loss). Every view
+    renders its depth, normal and distortion maps."""
+    if len(cameras) != targets.shape[0]:
+        raise ValueError(f"{len(cameras)} cameras for {targets.shape[0]} targets")
+    p = activate(params)
+    photo = dist = num = den = 0.0
+    for cam, target in zip(cameras, targets):
+        img, depth, normal, distortion, aux = render_surfels(
+            p["means3d"], p["scales"], p["quats"], p["opacities"], p["features"], cam,
+            sh_degree=sh_degree, config=config, return_aux=True, return_depth=True,
+            return_normals=True, return_distortion=True,
+        )
+        n, d = normal_consistency_terms(depth, normal, aux.raster.final_transmittance, cam)
+        photo = photo + torch.sum((img - target) ** 2)
+        dist = dist + torch.sum(distortion)
+        num, den = num + n, den + d
+    loss = photo / targets.numel()
+    if distortion_weight:
+        loss = loss + distortion_weight * dist / (targets.numel() // 3)
+    if normal_weight:
+        loss = loss + normal_weight * num / torch.clamp(den, min=1.0)
+    return loss
+
+
+def train_step_surfel(
+    params: Mapping[str, torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    cameras: Sequence[Camera],
+    targets: torch.Tensor,  # (B, H, W, 3)
+    sh_degree: int | None = None,
+    config: RenderConfig = DEFAULT_CONFIG,
+    normal_weight: float = 0.0,
+    distortion_weight: float = 0.0,
+) -> torch.Tensor:
+    """One optimizer step of 2DGS (surfel) training on ``surfel_loss``, with
+    the paper's distortion and normal-consistency regularisers; returns the
+    loss (detached).
+
+    The single-device counterpart of the reference's
+    ``train_step_sharded_surfel``, with the same global loss. Its mesh of
+    cameras and tile-row slabs, the halo exchange and ZeRO-1 come with the
+    port of ``parallel/``.
+    """
+    optimizer.zero_grad(set_to_none=True)
+    loss = surfel_loss(params, cameras, targets, sh_degree, config, normal_weight,
+                       distortion_weight)
     loss.backward()
     optimizer.step()
     return loss.detach()

@@ -4,13 +4,16 @@ one NVIDIA GPU.
 
 Run from the repository root:
 
-    python3 scripts/port_profile.py [--mode train|render] [--steps 5]
+    python3 scripts/port_profile.py [--family 3dgs|2dgs] [--mode train|render] [--steps 5]
 
 The setup is chip_smoke.py's: the trained 1M-gaussian scene at 1920x1080,
 SH degree 3, its budgets (tile_size 32, max_tile_span 4, 8x capacity,
 tile_capacity 512), the "cuda" route; for ``train``, Adam from the same
-seeded perturbation towards the render of the unperturbed scene. After 3
-warm-up steps it prints
+seeded perturbation towards the render of the unperturbed scene. With
+``--family 2dgs`` the scene is read as disks (its first two log-scales),
+rendered by ``render_surfels`` with the depth, normal and distortion maps,
+and trained by ``train_step_surfel`` with chip_smoke.py's regulariser
+weights. After 3 warm-up steps it prints
 
   - the median time of ``--steps`` unprofiled steps (host clock around each
     step, ending in a synchronize);
@@ -50,16 +53,19 @@ def device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=("3dgs", "2dgs"), default="3dgs")
     ap.add_argument("--mode", choices=("train", "render"), default="train")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_profile: torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import H, PERTURB, SCENE_BUDGETS, TRAIN_LR, TRAIN_SEED, W
-    from mojosplat_tpu_torch import RenderConfig, render_gaussians
+    from chip_smoke import (
+        H, PERTURB, SCENE_BUDGETS, SURFEL_WEIGHTS, TRAIN_LR, TRAIN_SEED, W)
+    from mojosplat_tpu_torch import RenderConfig, render_gaussians, render_surfels
     from mojosplat_tpu_torch.convert import params_from_numpy
-    from mojosplat_tpu_torch.train import activate, make_optimizer, train_step
+    from mojosplat_tpu_torch.train import (
+        activate, make_optimizer, train_step, train_step_surfel)
     from mojosplat_tpu_torch.utils.compress import load_compressed_scene
     from mojosplat_tpu_torch.utils.scenes import TRAINED_SCENE, scene_camera
 
@@ -76,12 +82,30 @@ def main() -> int:
     cam = scene_camera(H, W, device=dev)
     cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
     keys = ("means3d", "scales", "quats", "opacities", "features")
+    if args.family == "2dgs":
+        raw = dict(raw, scales=np.ascontiguousarray(raw["scales"][:, :2]))
+        maps = dict(return_depth=True, return_normals=True, return_distortion=True)
+
+        def render(p, **kw):
+            return render_surfels(*(p[k] for k in keys), cam, sh_degree=sh_degree, config=cfg,
+                                  **kw)
+
+        def train(leaves, opt, target):
+            train_step_surfel(leaves, opt, [cam], target[None], sh_degree=sh_degree,
+                              config=cfg, **SURFEL_WEIGHTS)
+    else:
+        maps = {}
+
+        def render(p, **kw):
+            return render_gaussians(*(p[k] for k in keys), cam, sh_degree=sh_degree,
+                                    config=cfg, **kw)
+
+        def train(leaves, opt, target):
+            train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree, config=cfg)
 
     if args.mode == "train":
         with torch.no_grad():
-            p = activate(params_from_numpy(raw, dev))
-            target = render_gaussians(*(p[k] for k in keys), cam, sh_degree=sh_degree,
-                                      config=cfg)
+            target = render(activate(params_from_numpy(raw, dev)))
         rng = np.random.default_rng(TRAIN_SEED)
         leaves = {
             k: torch.from_numpy(v + rng.standard_normal(v.shape, dtype=np.float32) * PERTURB[k])
@@ -91,14 +115,13 @@ def main() -> int:
         opt = make_optimizer(leaves, lr=TRAIN_LR)
 
         def step():
-            train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree, config=cfg)
+            train(leaves, opt, target)
     else:
         p = activate(params_from_numpy(raw, dev))
 
         def step():
             with torch.no_grad():
-                render_gaussians(*(p[k] for k in keys), cam, sh_degree=sh_degree,
-                                 background_color=(0.1, 0.1, 0.1), config=cfg)
+                render(p, background_color=(0.1, 0.1, 0.1), **maps)
 
     for _ in range(3):
         step()
@@ -132,7 +155,7 @@ def main() -> int:
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    print(f"{args.mode}: median of {args.steps} unprofiled steps {step_ms:.3f} ms "
+    print(f"{args.family} {args.mode}: median of {args.steps} unprofiled steps {step_ms:.3f} ms "
           f"({', '.join(f'{x:.3f}' for x in wall)}); under the profiler {profiled_ms:.3f} ms")
     print(f"device busy per step {busy_ms:.3f} ms; idle share {1 - busy_ms / step_ms:.4f} "
           f"of the unprofiled step")
@@ -140,7 +163,8 @@ def main() -> int:
     for name, ms, calls in rows[:30]:
         print(f"{ms:14.4f} {ms / busy_ms:7.2%} {calls:10.1f}  {name[:110]}")
     print(json.dumps(dict(
-        mode=args.mode, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        family=args.family, mode=args.mode, device=torch.cuda.get_device_name(0),
+        nvidia_smi=smi,
         steps=args.steps, step_ms=step_ms, wall_ms=wall, profiled_step_ms=profiled_ms,
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / step_ms,
         kernels=[dict(name=n, ms=m, calls=c) for n, m, c in rows[:30]])))

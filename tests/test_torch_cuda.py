@@ -14,14 +14,15 @@ with scale_r = max |plain_r|: within 1e-4 scale_r on all but 0.001% of
 values and within 1e-3 scale_r everywhere (the f32 sums over pixels run in
 other orders; a flip would move one pixel's share of a slot's sum). B3 agrees with index_add_ within rtol 1e-5
 (another order of f32 adds) and is bitwise equal to itself, as are the
-gradients of the packed gather.
+gradients of the packed gather. The surfel blend B6/B7 is held to B1's
+rule and its backward B8 to B2's, and B8 is bitwise equal to itself.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mojosplat_tpu_torch import RenderConfig
+from mojosplat_tpu_torch import Camera, RenderConfig
 from mojosplat_tpu_torch.ops.expand_cuda import (
     segment_expand_offsets, segment_expand_offsets_plain)
 from mojosplat_tpu_torch.ops.raster_cuda import (
@@ -29,6 +30,10 @@ from mojosplat_tpu_torch.ops.raster_cuda import (
 from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
 from mojosplat_tpu_torch.ops.slice_cuda import (
     segment_slice_gather, segment_slice_gather_plain)
+from mojosplat_tpu_torch.ops.surfel_cuda import (
+    primed_surfel_columns, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
+    raster_surfel_tiles_plain)
+from mojosplat_tpu_torch.surfel import oriented_normal_columns, surfel_alpha_columns
 
 pytestmark = pytest.mark.cuda
 
@@ -187,3 +192,80 @@ def test_gather_adjoint_is_deterministic(dev):
     want = torch.zeros((10, n), device=dev).index_add_(1, safe, g * live)
     torch.testing.assert_close(a[0], want[0:2].T, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(a[3], want[5], rtol=1e-5, atol=1e-5)
+
+
+def surfel_pdata(rng, n_tiles, tw, ts, cap, aux):
+    """Packed surfel slot rows (16 or 18, n_tiles * cap): each slot a disk
+    whose centre projects within 4 px of its tile, one in ten edge-on, made
+    with the port's own column functions for a camera on the world axes."""
+    H, W = n_tiles // tw * ts, tw * ts
+    f = 1.2 * W
+    cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=H, W=W, fx=f, fy=f, cx=W / 2,
+                        cy=H / 2, device="cpu")
+    m = n_tiles * cap
+    tile = np.repeat(np.arange(n_tiles), cap)
+    sx = (tile % tw) * ts + rng.uniform(-4, ts + 4, m)
+    sy = (tile // tw) * ts + rng.uniform(-4, ts + 4, m)
+    z = rng.uniform(1.5, 4.0, m)
+    means = np.stack([(sx - W / 2) / f * z, (sy - H / 2) / f * z, z], 1)
+    scales = np.log(rng.uniform(0.5, 8.0, (m, 2)) * z[:, None] / f)
+    quats = rng.normal(size=(m, 4))
+    quats[rng.random(m) < 0.1] = [np.cos(np.pi / 4), np.sin(np.pi / 4), 0.0, 0.0]
+    opac = rng.uniform(0.05, 0.99, m)
+    cols = surfel_alpha_columns(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (means, scales, quats, opac)), cam)
+    pcols = list(primed_surfel_columns(cols, cam))
+    pcols += [torch.from_numpy(rng.uniform(0, 1.5, m).astype(np.float32)) for _ in range(3)]
+    pcols += list(oriented_normal_columns(cols)) if aux else [torch.zeros(m)]
+    return torch.stack(pcols).numpy()
+
+
+@pytest.mark.parametrize("ts,aux", [(16, False), (32, False), (8, True), (16, True),
+                                    (32, True)])
+def test_surfel_kernels_match_plain(dev, ts, aux):
+    rng = np.random.default_rng(ts * 10 + aux)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(surfel_pdata(rng, n_tiles, tw, ts, cap, aux)).to(dev)
+    counts = torch.tensor([0, 1, 2, 31, 255, 256, 257, 300, 400, 511, 512, 600],
+                          dtype=torch.int32, device=dev)
+    oc = 9 if aux else 5
+    gout = torch.from_numpy(rng.normal(size=(n_tiles, oc, ts * ts)).astype(np.float32)).to(dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, tile_batch=4)
+    # B6 / B7 against the plain forward (the B1 rule).
+    got = raster_surfel_tiles(pdata, counts, ts, tw, cfg, aux)
+    want = raster_surfel_tiles_plain(pdata, counts, ts, tw, cfg, aux)
+    torch.cuda.synchronize()
+    assert got.shape == (n_tiles, oc, ts * ts)
+    # The depth moments are in scene units (z ~ 4, z^2 ~ 16): relative to
+    # each output row's largest value.
+    scale = want.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    diff = (got - want).abs() / scale
+    assert int((diff > 1e-5).sum()) <= 1e-4 * diff.numel()
+    assert float(diff.max()) <= 5e-3
+    assert torch.all(got[0, -1] == 1.0) and torch.all(got[0, :-1] == 0.0)
+
+    # B8 against the plain backward (the B2 rule), bitwise reproducible.
+    def kernel_grad():
+        pd = pdata.clone().requires_grad_(True)
+        raster_surfel_tiles(pd, counts, ts, tw, cfg, aux).backward(gout)
+        return pd.grad
+
+    d_got = kernel_grad()
+    d_want = raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg, aux)
+    torch.cuda.synchronize()
+    assert d_got.shape == pdata.shape and bool(torch.isfinite(d_got).all())
+    rel = (d_got - d_want).abs() / (d_want.abs().amax(dim=1, keepdim=True) + 1e-12)
+    assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel()
+    assert float(rel.max()) <= 1e-3
+    d = d_got.reshape(pdata.shape[0], n_tiles, cap)
+    assert torch.all(d[:, 0] == 0) and torch.all(d[:, 1, 1:] == 0)  # nothing past a count
+    assert torch.equal(kernel_grad(), d_got)
+
+
+def test_surfel_kernels_reject_what_they_do_not_take(dev):
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    cfg = RenderConfig()
+    with pytest.raises(ValueError):  # 16 rows are the plain variant, not the maps
+        raster_surfel_tiles(torch.zeros((16, 256), device=dev), counts, 16, 2, cfg, True)
+    with pytest.raises(ValueError):  # 64x64 tiles exceed one block
+        raster_surfel_tiles(torch.zeros((16, 256), device=dev), counts, 64, 2, cfg)
