@@ -11,7 +11,9 @@ exits nonzero without printing the final result line:
   1. Device: requires CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for matmuls and convolutions.
   2. Build: compiles the kernels under mojosplat_tpu_torch/csrc/ with nvcc
-     for sm_90a and prints the build time and ptxas register report.
+     for sm_90a (one nvcc per source, in parallel) and prints the build
+     time and each kernel's registers and spills (the 45 probe
+     instantiations of B9 summarised in one line).
   3. Golden: renders tests/golden/render_3dgs.npz's inputs on the "cuda"
      route and holds image and depth to the committed vectors
      (rtol 5e-5, atol 5e-6).
@@ -29,12 +31,14 @@ exits nonzero without printing the final result line:
      the card could take (bound), and one PyTorch call computing the same
      function where there is one (library).
   5. Render: the trained 1M-gaussian scene (assets/trained_scene_1m.npz)
-     at 1920x1080 with tile_size 32, max_tile_span 4, 8x intersection
-     capacity and tile_capacity 512, on the "cuda" route under no_grad.
-     Checks a finite image, that B1, B4 and B5 were launched during that
-     render and no backward kernel or residual, and agreement with the
-     "torch" route by the B1 rule; prints the drop counters, the median
-     render time of 10 runs, pixels/s and peak device memory.
+     at 1920x1080 with bench.py's preset 6 budgets (tile_size 32,
+     max_tile_span 4, 8x intersection capacity, tile_capacity 512,
+     tight_cull), on the "cuda" route under no_grad. Checks a finite image,
+     that B1, B4 and B5 were launched during that render and no backward
+     kernel, residual or probe, and agreement with the "torch" route by the
+     B1 rule; prints the drop counters, the median render time of 10 runs,
+     pixels/s and peak device memory; and once the counters and time of
+     the same render without tight_cull.
   6. Golden gradients: tests/test_golden.py's loss on the "cuda" route;
      every parameter's gradient against the committed vectors at
      rtol 5e-5 and atol 5e-6 x max|g|.
@@ -73,6 +77,28 @@ exits nonzero without printing the final result line:
      on the two routes' gradients at a quarter of the resolution and of
      the disks. Prints the median step time, steps/s and peak memory.
 
+ 12. B9, the blend-variant probe (scripts/port_kernel_probe.py's
+     configuration: 1M seeded random gaussians, 1080p, tile_size 16): each
+     of the nine variants launched once by the probe's path (its counter
+     set to 0 just before); full bit-equal to B1; every variant against
+     its plain version (B1's rule; blend1/blend3 at an atol of BF16_ATOL,
+     and their plain versions moved from full on at least BF16_MIN_MOVED
+     of the values; blend/memonly within ROW_SUM_MAX_REL of the row's
+     scale); the parity line; each variant's time, with B1's bound.
+ 13. Density control at 1M capacity (ROADMAP's acceptance run): every
+     other gaussian of the trained scene padded to 2^20 slots trains
+     towards the render of the whole scene at 960x540 with preset 6's
+     budgets: 500 steps of train_step_with_densify_stats (absgrad, Adam)
+     with densify_and_prune every 100, then 100 MCMC steps (the
+     regularizer in the loss, position noise each step, mcmc_relocate every
+     50). Prints each event's metrics and alive counts before and after,
+     the losses, the median step times, the peak memory and the launches;
+     fails on a non-finite loss or parameter or an alive count above the
+     capacity. Before the MCMC steps, the relocation, the position noise
+     and the MCMC loss's gradients must each repeat bit for bit from one
+     state and generator state (and the line says how many draws
+     torch.multinomial moves between two such runs).
+
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
 kernels), so a few values near a threshold may flip. Each output row is
@@ -83,14 +109,17 @@ differ by more than GRAD_REL_ATOL of their row's scale and none by more
 than ROUTE_GRAD_MAX_REL of it.
 
 The line before the last is a JSON object with each kernel's launches in
-one training step of its path (B6: in the render without maps), its max
-abs error against the plain version, its times and its bound. The last
-line is {"ok": true, "device": {...}}.
+one training step of its path (B6: in the render without maps; B9: in the
+probe's run, one entry per variant), its max abs error against the plain
+version, its times and its bound. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,9 +176,10 @@ ROUTE_MAX_SHARE, ROUTE_MAX_ERR = 1e-3, 2e-2
 ROUTE_GRAD_MAX_SHARE, ROUTE_GRAD_MAX_REL = 1e-4, 1e-2
 SURFEL_WEIGHTS = dict(normal_weight=0.05, distortion_weight=100.0)
 H, W = 1080, 1920
+# Preset 6 of bench.py: its budgets with tight culling.
 SCENE_BUDGETS = dict(
     tile_size=32, max_tile_span=4, isect_padding_multiplier=8,
-    tile_capacity=512, tight_cull=False,
+    tile_capacity=512, tight_cull=True,
 )
 BACKGROUND = (0.1, 0.1, 0.1)
 TRAIN_SEED, TRAIN_STEPS, TRAIN_LR = 0, 10, 1e-3
@@ -157,6 +187,27 @@ TRAIN_SEED, TRAIN_STEPS, TRAIN_LR = 0, 10, 1e-3
 # training (the scene's gaussians are ~0.015 world units across).
 PERTURB = dict(means3d=2e-3, scales=0.05, quats=0.02, opacities_raw=0.2, features=0.02)
 KEYS = ("means3d", "scales", "quats", "opacities", "features")
+# Phase 12, B9: the plain blend1 and blend3 walk the kernel's f32
+# transmittance chain and every bf16 product is exact in f32, so the kernel
+# meets them at f32 rounding: the B1 rule with an atol of BF16_ATOL of the
+# row's scale. The bf16 product moves blend3 from full by at most ~1e-5 of
+# the scale, so this atol, not the B1 rule's, tells it from full; the plain
+# version must differ from full (B1's output) by more than BF16_ATOL on at
+# least BF16_MIN_MOVED of the values, or the compare could not tell a
+# kernel that skipped the rounding. The raw-row sums of blend and memonly
+# add at most 512 positive terms in another order, so they lie within 512
+# f32 ulps (3e-5) of their row's scale.
+BF16_ATOL, BF16_MIN_MOVED, ROW_SUM_MAX_REL = 1e-7, 1e-2, 3e-5
+# Phase 13, ROADMAP's density-control acceptance: half the trained scene
+# padded to 2^20 slots, 960x540, 500 ADC steps (absgrad, Adam) with an event
+# every 100, then 100 MCMC steps with a relocation every 50.
+DENSIFY_H, DENSIFY_W, DENSIFY_CAPACITY, DENSIFY_SEED = 540, 960, 1 << 20, 0
+ADC_STEPS, ADC_EVERY, MCMC_STEPS, MCMC_EVERY = 500, 100, 100, 50
+# The ADC threshold at each event: this quantile of the live gaussians' mean
+# statistic, so about 1% of them are candidates whatever the statistic's
+# units; the scene extent is 1.1 x the evaluation view's orbit radius (the
+# reference recipe's camera extent).
+DENSIFY_QUANTILE, SCENE_EXTENT = 0.99, 1.1 * 3.9
 
 
 def phase(name: str, msg: str) -> None:
@@ -193,19 +244,38 @@ def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
     return dict(bound_ms=t_ops, bound_by="operations")
 
 
+def ptxas_report(log: str) -> list[tuple[str, int, str]]:
+    """(mangled kernel name, registers, spill line) of each kernel in
+    ptxas's -v report."""
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
 def blend_agreement(name: str, got: torch.Tensor, want: torch.Tensor, scale=1.0,
-                    max_share: float = BLEND_MAX_SHARE, max_err: float = BLEND_MAX_ERR) -> float:
-    """Apply the B1 rule (or another share and max) to |got - want| / scale;
-    print the differing count and the max; return the max abs diff."""
+                    max_share: float = BLEND_MAX_SHARE, max_err: float = BLEND_MAX_ERR,
+                    atol: float = BLEND_ATOL) -> float:
+    """Apply the B1 rule (or another share, max and atol) to |got - want| /
+    scale; print the differing count and the max; return the max abs
+    diff."""
     raw = (got - want).abs()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
     diff = raw / scale
-    n_diff = int((diff > BLEND_ATOL).sum())
+    n_diff = int((diff > atol).sum())
     worst = float(diff.max())
     share = n_diff / diff.numel()
     phase(name, f"{n_diff} of {diff.numel()} values differ by more than "
-          f"{BLEND_ATOL} ({share:.3e}); max diff {worst:.3e}, max abs diff "
+          f"{atol} ({share:.3e}); max diff {worst:.3e}, max abs diff "
           f"{float(raw.max()):.3e}")
     if share > max_share or worst > max_err:
         raise AssertionError(
@@ -551,6 +621,267 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
                 k["launches_render"] = launches["B7"]
 
 
+def probe_phase(kernels: list) -> None:
+    """Phase 12: B9, the blend-variant probe, at the reference probe's
+    configuration (scripts/port_kernel_probe.py). The probe's path runs each
+    variant once, its counter set to 0 just before; then each variant's
+    output is held against its plain version and timed. Appends one
+    kernels entry per variant, each with B1's bound at these shapes."""
+    from mojosplat_tpu_torch.ops.raster_cuda import raster_tiles, raster_tiles_fwd
+    from mojosplat_tpu_torch.ops.raster_probe import (
+        PROBE_CHUNK, VARIANTS, raster_variant, raster_variant_plain)
+
+    spec = importlib.util.spec_from_file_location(
+        "port_kernel_probe", ROOT / "scripts" / "port_kernel_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    dev = torch.device("cuda", 0)
+    pdata, counts, ts, tw, cfg = probe.probe_inputs(dev)
+    rows, n_tiles = pdata.shape[0], counts.shape[0]
+    with torch.no_grad():
+        raster_variant.launches = 0
+        outs, launched = {}, {}
+        for v in VARIANTS:
+            before = raster_variant.launches
+            outs[v] = raster_variant(v, pdata, counts, ts, tw, cfg, PROBE_CHUNK)
+            launched[v] = raster_variant.launches - before
+        torch.cuda.synchronize()
+        phase("B9", f"pdata {tuple(pdata.shape)}, {int(counts.sum())} slots; launches of the "
+              f"probe's path {json.dumps(launched)}")
+        if min(launched.values()) < 1:
+            raise AssertionError("B9: a variant of the probe was not launched")
+        if not torch.equal(outs["full"], raster_tiles(pdata, counts, ts, tw, cfg)):
+            raise AssertionError("B9: the probe's full variant differs from B1")
+        phase("B9", "parity " + " ".join(f"{k}={v:.3e}" for k, v in probe.parity(outs).items()))
+        _, resid = raster_tiles_fwd(pdata, counts, ts, tw, cfg, residual=True)
+        pairs = int(torch.minimum(resid[1], counts[:, None]).sum())
+        b1_bound = bound(4 * (rows * int(counts.sum()) + n_tiles + outs["full"].numel()),
+                         B1_OPS_PER_PAIR * pairs, pairs)
+        del resid
+        for v in VARIANTS:
+            want = raster_variant_plain(v, pdata, counts, ts, tw, cfg, PROBE_CHUNK)
+            scale = want.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1e-30)
+            rule = {}
+            if v in ("blend", "memonly"):
+                rule = dict(max_share=0.0, max_err=ROW_SUM_MAX_REL)
+            elif v in ("blend1", "blend3"):
+                rule = dict(atol=BF16_ATOL)
+                moved, moved_b1 = (float(((want - outs["full"]).abs() / scale > a).float().mean())
+                                   for a in (BF16_ATOL, BLEND_ATOL))
+                phase(f"B9 {v}", f"the plain version differs from full by more than "
+                      f"{BF16_ATOL} of the scale on {moved:.4e} of the values, by more than "
+                      f"{BLEND_ATOL} on {moved_b1:.4e}")
+                if moved < BF16_MIN_MOVED:
+                    raise AssertionError(f"B9 {v}: the compare cannot tell it from full")
+            err = blend_agreement(f"B9 {v}", outs[v], want, scale, **rule)
+            del want
+            kernels.append(dict(
+                name=f"B9 raster_variant ({v})", route="cuda",
+                source="mojosplat_tpu_torch/csrc/raster_fwd.cu",
+                replaces="scripts/dev_kernel_probe.py:177",
+                launches=launched[v], launches_train=0, max_abs_err=err,
+                ms=cuda_ms(lambda v=v: raster_variant(v, pdata, counts, ts, tw, cfg,
+                                                      PROBE_CHUNK), 20, 3),
+                plain_ms=cuda_ms(lambda v=v: raster_variant_plain(
+                    v, pdata, counts, ts, tw, cfg, PROBE_CHUNK), 3, 1),
+                **b1_bound, library_ms=None,
+            ))
+            k = kernels[-1]
+            phase("time", f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+                  f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library none")
+    del outs, pdata, counts
+
+
+def mcmc_repeats(leaves: dict, gen, cam, target, sh_degree: int, cfg, mcfg) -> None:
+    """Each part of an MCMC step run twice from the same state and
+    generator state must give bitwise-equal results: the relocation, the
+    position noise and the loss's gradients. Also prints how many of
+    torch.multinomial's draws move between two runs on the relocation's
+    weights (the port draws through densify._categorical instead). Leaves
+    ``leaves`` and ``gen`` as they were."""
+    from mojosplat_tpu_torch import render_gaussians
+    from mojosplat_tpu_torch.densify import (
+        mcmc_position_noise, mcmc_regularization, mcmc_relocate)
+    from mojosplat_tpu_torch.train import activate, l2_image_loss
+
+    def twice(fn):
+        out = []
+        for _ in range(2):
+            g = torch.Generator(device=gen.device)
+            g.set_state(gen.get_state())
+            out.append(fn(g))
+        return out
+
+    a, b = twice(lambda g: mcmc_relocate(leaves, g, mcfg)[0])
+    a2, b2 = twice(lambda g: mcmc_position_noise(leaves, g, TRAIN_LR, mcfg))
+    for what, x, y in (("mcmc_relocate", a, b), ("mcmc_position_noise", a2, b2)):
+        if any(not torch.equal(x[k], y[k]) for k in x):
+            raise AssertionError(f"densify: two runs of {what} differ")
+    del a, b, a2, b2
+
+    def grads(_):
+        for t in leaves.values():
+            t.grad = None
+        p = activate(leaves)
+        img = render_gaussians(*(p[k] for k in KEYS), cam, sh_degree=sh_degree, config=cfg)
+        (l2_image_loss(img, target) + mcmc_regularization(leaves, mcfg)).backward()
+        out = {k: t.grad.clone() for k, t in leaves.items()}
+        for t in leaves.values():
+            t.grad = None
+        return out
+
+    g1, g2 = twice(grads)
+    if any(not torch.equal(g1[k], g2[k]) for k in g1):
+        raise AssertionError("densify: two backward passes of the MCMC loss differ")
+    with torch.no_grad():
+        opac = torch.sigmoid(leaves["opacities_raw"])
+        w = torch.where(opac >= mcfg.min_opacity, opac.clamp(min=1e-12), torch.zeros_like(opac))
+    d1, d2 = twice(lambda g: torch.multinomial(w, w.numel(), replacement=True, generator=g))
+    phase("densify", "two runs from one state and generator state: mcmc_relocate, "
+          "mcmc_position_noise and the MCMC loss's gradients bitwise equal; "
+          f"torch.multinomial on the relocation's weights: {int((d1 != d2).sum())} of "
+          f"{d1.numel()} draws differ")
+
+
+def densify_phase(raw: dict, sh_degree: int, counters: dict) -> dict:
+    """Phase 13: density control at 1M capacity. Every other gaussian of
+    the trained scene, padded to DENSIFY_CAPACITY slots, trains towards the
+    "cuda"-route render of the whole scene at DENSIFY_W x DENSIFY_H: ADC
+    steps of train_step_with_densify_stats (absgrad, Adam) with a
+    densify_and_prune event every ADC_EVERY steps, then MCMC steps
+    (train_step with mcmc_regularization in the loss, mcmc_position_noise
+    after each step, mcmc_relocate every MCMC_EVERY). The optimizer starts
+    afresh after each event. Fails on a non-finite loss or parameter or an
+    alive count above the capacity. Returns each kernel's launches during
+    the phase (counters: name -> wrapper)."""
+    from mojosplat_tpu_torch import RenderConfig, render_gaussians
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.densify import (
+        DensifyConfig, DensifyState, MCMCConfig, alive_mask, densify_and_prune,
+        mcmc_position_noise, mcmc_regularization, mcmc_relocate, pad_to_capacity)
+    from mojosplat_tpu_torch.train import (
+        activate, make_optimizer, train_step, train_step_with_densify_stats)
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    cam = scene_camera(DENSIFY_H, DENSIFY_W, device=dev)
+    with torch.no_grad():
+        full = activate(params_from_numpy(raw, dev))
+        target = render_gaussians(*(full[k] for k in KEYS), cam, sh_degree=sh_degree,
+                                  config=cfg)
+        del full
+    half = params_from_numpy({k: v[::2] for k, v in raw.items()}, dev)
+    leaves = {k: v.requires_grad_(True)
+              for k, v in pad_to_capacity(half, DENSIFY_CAPACITY).items()}
+    gen = torch.Generator(device=dev).manual_seed(DENSIFY_SEED)
+    phase("densify", f"{half['means3d'].shape[0]} gaussians padded to {DENSIFY_CAPACITY} "
+          f"slots, {DENSIFY_W}x{DENSIFY_H}, target: the cuda-route render of the "
+          f"{raw['means3d'].shape[0]}-gaussian scene; Adam lr {TRAIN_LR}")
+    del half
+
+    def assign(new):
+        with torch.no_grad():
+            for k, t in leaves.items():
+                t.copy_(new[k])
+
+    def check(what):
+        bad = [k for k, t in leaves.items() if not bool(torch.isfinite(t).all())]
+        alive = int(alive_mask(leaves).sum())
+        if bad or alive > DENSIFY_CAPACITY:
+            raise AssertionError(f"densify: {what}: non-finite {bad} or {alive} alive")
+        return alive
+
+    def timed(step):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"densify: non-finite loss {float(loss)}")
+        return float(loss), start.elapsed_time(end)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    opt = make_optimizer(leaves, lr=TRAIN_LR)
+    dstate = DensifyState.zero(DENSIFY_CAPACITY, dev)
+    adc_losses, adc_ms = [], []
+    for i in range(1, ADC_STEPS + 1):
+        def adc_step():
+            nonlocal dstate
+            dstate, loss = train_step_with_densify_stats(
+                leaves, opt, dstate, [cam], target[None], sh_degree=sh_degree, config=cfg,
+                absgrad=True)
+            return loss
+        loss, ms = timed(adc_step)
+        adc_losses.append(loss)
+        adc_ms.append(ms)
+        if i % ADC_EVERY == 0:
+            before = check(f"before the ADC event at step {i}")
+            seen = alive_mask(leaves) & (dstate.count > 0)
+            mean = (dstate.grad_accum / dstate.count.clamp(min=1))[seen]
+            threshold = float(torch.quantile(mean, DENSIFY_QUANTILE)) if mean.numel() else 1.0
+            new, dstate, m = densify_and_prune(leaves, dstate, gen, SCENE_EXTENT,
+                                               DensifyConfig(grad_threshold=threshold))
+            assign(new)
+            del new
+            opt = make_optimizer(leaves, lr=TRAIN_LR)
+            alive = check(f"ADC event at step {i}")
+            m = {k: int(v) for k, v in m.items()}
+            # The reference's ADC fills the free slots in index order, so a
+            # clone or split child written into a slot pruned in the same
+            # event dies with it (its split parent still shrinks).
+            lost = before - m["pruned"] + m["cloned"] + m["split"] - alive
+            phase("densify", f"ADC event after step {i}: grad_threshold {threshold:.4e}, "
+                  + ", ".join(f"{k} {v}" for k, v in m.items())
+                  + f"; alive {before} -> {alive}; written gaussians lost to the same "
+                  f"event's prune {lost}")
+    mcfg = MCMCConfig()
+    launched = {k: fn.launches for k, fn in counters.items()}
+    mcmc_repeats(leaves, gen, cam, target, sh_degree, cfg, mcfg)
+    for k, fn in counters.items():  # the check's launches are not the path's
+        fn.launches = launched[k]
+    mcmc_losses, mcmc_ms = [], []
+    for i in range(1, MCMC_STEPS + 1):
+        def mcmc_step():
+            loss = train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree, config=cfg,
+                              loss_extra=lambda p: mcmc_regularization(p, mcfg))
+            assign(mcmc_position_noise(leaves, gen, TRAIN_LR, mcfg))
+            return loss
+        loss, ms = timed(mcmc_step)
+        mcmc_losses.append(loss)
+        mcmc_ms.append(ms)
+        if i % MCMC_EVERY == 0:
+            before = check(f"before the MCMC event at step {i}")
+            new, m = mcmc_relocate(leaves, gen, mcfg)
+            assign(new)
+            del new
+            opt = make_optimizer(leaves, lr=TRAIN_LR)
+            alive = check(f"MCMC event at step {i}")
+            phase("densify", f"MCMC relocation after step {i}: "
+                  + ", ".join(f"{k} {int(v)}" for k, v in m.items())
+                  + f" (above min_opacity before the move); alive by the mask {before} -> "
+                  f"{alive}")
+    torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check("the end")
+    phase("densify", f"ADC loss {adc_losses[0]:.6e} at step 1 -> {adc_losses[-1]:.6e} at step "
+          f"{ADC_STEPS}; MCMC loss {mcmc_losses[0]:.6e} -> {mcmc_losses[-1]:.6e}")
+    phase("densify", f"median step: ADC {statistics.median(adc_ms):.3f} ms, MCMC "
+          f"{statistics.median(mcmc_ms):.3f} ms (CUDA events; the MCMC step includes the "
+          f"position noise); peak memory {peak} bytes; launches during the phase "
+          f"{json.dumps(launched)}")
+    if min(launched[k] for k in ("B1", "B2", "B3", "B4", "B5")) < 1 or launched["B9"]:
+        raise AssertionError(f"densify: launches {launched}")
+    del leaves, opt, dstate, target
+    return launched
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -565,6 +896,7 @@ def main() -> int:
     from mojosplat_tpu_torch.ops.raster_cuda import (
         gather_tile_data, raster_tiles, raster_tiles_bwd, raster_tiles_bwd_plain,
         raster_tiles_fwd, raster_tiles_plain)
+    from mojosplat_tpu_torch.ops.raster_probe import raster_variant
     from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
     from mojosplat_tpu_torch.ops.sh import sh_to_color
     from mojosplat_tpu_torch.ops.slice_cuda import (
@@ -591,9 +923,14 @@ def main() -> int:
     _kernels.library()
     phase("build", f"{time.perf_counter() - t0:.2f} s for "
           f"{', '.join(p.name for p in _kernels.sources())}")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            phase("build", line.strip())
+    report = ptxas_report(log)
+    probe = [r for r in report if "raster_probe_kernel" in r[0]]
+    for name, regs, spills in report:
+        if "raster_probe_kernel" not in name:
+            phase("build", f"{name}: {regs} registers, {spills}")
+    phase("build", f"B9 raster_probe_kernel: {len(probe)} instantiations, "
+          f"{min(r[1] for r in probe)}-{max(r[1] for r in probe)} registers, "
+          f"{sum('0 bytes spill stores' not in r[2] for r in probe)} with spills")
 
     # ---- 3. Golden
     with np.load(GOLDEN) as z:
@@ -641,10 +978,11 @@ def main() -> int:
                                  params["opacities"], cam, cfg_torch)
         colors = sh_to_color(params["features"], params["means3d"], cam.position, sh_degree)
         pre = binning_mod.presort_gaussians(proj.means2d, proj.radii, proj.depths,
-                                            th, tw, cfg_torch)
+                                            th, tw, cfg_torch, proj.conics, params["opacities"])
         capacity = binning_mod.isect_capacity(n, cfg_torch)
         bins = binning_mod.bin_gaussians_to_tiles(proj.means2d, proj.radii, proj.depths,
-                                                  H, W, cfg_torch)
+                                                  H, W, cfg_torch, conics=proj.conics,
+                                                  opacities=params["opacities"])
         ranges = bins.tile_ranges.reshape(-1, 2)
         starts = ranges[:, 0].contiguous()
         counts = torch.clamp(ranges[:, 1] - ranges[:, 0], 0, cap).to(torch.int32)
@@ -799,7 +1137,7 @@ def main() -> int:
 
     # ---- 5. The main path, serving: render the trained scene on the "cuda" route
     counters = (segment_expand_offsets, segment_slice_gather, raster_tiles,
-                raster_tiles_bwd, segment_sum_cols)
+                raster_tiles_bwd, segment_sum_cols, raster_variant)
 
     def reset_counters():
         for fn in counters:
@@ -821,10 +1159,11 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated(dev)
         phase("render", f"launches during the render: B4 {launches_render[0]}, "
               f"B5 {launches_render[1]}, B1 {launches_render[2]}, B2 {launches_render[3]}, "
-              f"B3 {launches_render[4]}; residuals written {raster_tiles_fwd.residuals}")
+              f"B3 {launches_render[4]}, B9 {launches_render[5]}; residuals written "
+              f"{raster_tiles_fwd.residuals}")
         if min(launches_render[:3]) < 1:
             raise AssertionError("a kernel of the path was not launched by the render")
-        if max(launches_render[3:]) or raster_tiles_fwd.residuals:
+        if max(launches_render[3:]) or raster_tiles_fwd.residuals:  # B2, B3, B9
             raise AssertionError("the no-grad render ran a backward kernel or wrote a residual")
         if image.shape != (H, W, 3) or not bool(torch.isfinite(image).all()):
             raise AssertionError(f"render: bad image {tuple(image.shape)} or non-finite")
@@ -843,6 +1182,16 @@ def main() -> int:
         phase("render", f"median of 10: cuda route {render_ms:.3f} ms "
               f"({H * W / (render_ms / 1e3):.1f} pixels/s), torch route {torch_ms:.3f} ms; "
               f"peak memory of one cuda-route render {peak} bytes")
+        # Preset 6 without its culling, once, for the counters and the time.
+        cfg_aabb = RenderConfig(raster_impl="cuda", **dict(SCENE_BUDGETS, tight_cull=False))
+        image_a, aux_a = render(params, cfg_aabb, return_aux=True)
+        aabb_ms = cuda_ms(lambda: render(params, cfg_aabb), 10, 1)
+        phase("render", "without tight_cull: counters " + json.dumps(drop_counters(aux_a))
+              + f", median of 10 {aabb_ms:.3f} ms; with it {render_ms:.3f} ms")
+        # Under the tile cap the two keep other slots, so the images differ.
+        phase("render", f"max |image with - without tight_cull| "
+              f"{float((image - image_a).abs().max()):.3e}")
+        del image_a, aux_a
         # train_step renders on the default (black) background.
         target = render(params, cfg_cuda, background=None)
 
@@ -881,12 +1230,14 @@ def main() -> int:
     phase("train", "loss per step " + ", ".join(f"{x:.6e}" for x in losses)
           + f"; after step {TRAIN_STEPS}: {final:.6e}")
     phase("train", f"launches during one step: B4 {launches_train[0]}, B5 {launches_train[1]}, "
-          f"B1 {launches_train[2]}, B2 {launches_train[3]}, B3 {launches_train[4]}; "
+          f"B1 {launches_train[2]}, B2 {launches_train[3]}, B3 {launches_train[4]}, "
+          f"B9 {launches_train[5]}; "
           f"residuals written {residuals_train}")
     if not all(np.isfinite(losses)) or not np.isfinite(final) or not final < losses[0]:
         raise AssertionError("train: the loss is not finite or did not fall")
-    if min(launches_train) < 1:
-        raise AssertionError("train: a kernel of the path was not launched by the step")
+    if min(launches_train[:5]) < 1 or launches_train[5]:
+        raise AssertionError("train: a kernel of the path was not launched by the step, or "
+                             "the probe was")
     med = statistics.median(step_ms)
     phase("train", f"step time median of {TRAIN_STEPS} {med:.3f} ms (steps "
           + ", ".join(f"{x:.3f}" for x in step_ms) + f"), {1e3 / med:.3f} steps/s; "
@@ -921,12 +1272,21 @@ def main() -> int:
     # ---- 8-11. The 2DGS surfel path
     surfel_phases(raw, sh_degree, cam, gcam, gcfg, kernels)
 
+    # ---- 12. B9, the blend-variant probe
+    probe_phase(kernels)
+
+    # ---- 13. Density control at 1M capacity
+    launches_densify = densify_phase(raw, sh_degree, dict(zip(
+        ("B4", "B5", "B1", "B2", "B3", "B9"), counters)))
+
     for k in kernels:
         kid = k["name"][:2]
         if kid in ("B4", "B5", "B1", "B2", "B3"):
             k["launches"] = launches_train[["B4", "B5", "B1", "B2", "B3"].index(kid)]
         if kid in ("B4", "B5", "B1"):
             k["launches_render"] = launches_render[["B4", "B5", "B1"].index(kid)]
+        if kid in launches_densify:
+            k.setdefault("launches_densify", launches_densify[kid])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

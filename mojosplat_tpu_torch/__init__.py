@@ -7,12 +7,15 @@ Pallas kernel on the ported path is a hand-written CUDA kernel under
 
 Ported so far, each on the ``"torch"`` (plain) and ``"cuda"`` (kernel)
 routes, forward and backward: the 3DGS render with SH colours
-(``render_gaussians``) and its ``train.train_step``; the 2DGS surfel render
-with depth, normal and distortion maps (``render_surfels``) and its
+(``render_gaussians``, with ``tight_cull`` and the densification sinks) and
+its ``train.train_step`` and ``train.train_step_with_densify_stats``; ADC
+and MCMC density control (``densify``); the 2DGS surfel render with depth,
+normal and distortion maps (``render_surfels``) and its
 ``train.train_step_surfel``. Kernels: B1/B2 (3DGS tile blend and its
 backward), B3 (segment sum), B4 (slot expansion), B5 (per-tile slot slice),
-B6/B7 (surfel tile blend, without and with the maps) and B8 (their
-backward). Importing this package never imports jax.
+B6/B7 (surfel tile blend, without and with the maps), B8 (their backward)
+and B9 (the blend-variant probe, ``ops.raster_probe``). Importing this
+package never imports jax.
 """
 
 from .camera import Camera, look_at

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-All ``.cu`` files are compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE
+Each ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together, and the objects are linked into ONE
 shared library with a plain C interface, loaded with ``ctypes``. Nothing
 includes PyTorch's headers, so a cold build takes seconds. The library lands
 in ``build/kernels/<hash>/`` beside the package (``build/`` is git-ignored),
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libmojosplat_kernels.so"
 
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "slice_gather_launch": (_P, _I, _P, _I, _I, _P, _P),
     "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
     "raster_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "raster_probe_launch": (_I, _I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
     "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
     "surfel_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
@@ -82,8 +84,10 @@ def build() -> tuple[Path, str]:
     """Compile the kernels if this source hash has no library yet.
 
     Returns (library path, the compiler's output: ptxas register and
-    shared-memory report). The library is written to a temporary name and
-    renamed, so a concurrent process never loads a half-written file.
+    shared-memory report). One ``nvcc -c`` per source runs in parallel,
+    then one ``nvcc -shared`` links. The library is written to a temporary
+    name and renamed, so a concurrent process never loads a half-written
+    file.
     """
     out_dir = BUILD_ROOT / _source_hash()
     lib = out_dir / LIB_NAME
@@ -91,19 +95,34 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        jobs = []
+        for src in sources():
+            obj = Path(tmp_dir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        report = []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            report.append(text)
+            if proc.returncode != 0:
+                for *_, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        tmp = Path(tmp_dir) / LIB_NAME
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        text = "".join(report)
+        log.write_text(text)
+        os.replace(tmp, lib)
+    return lib, text
 
 
 @functools.cache

@@ -9,7 +9,9 @@ Port of ``mojosplat_tpu.ops.raster_pallas``:
     sorts the slot ids stably with the per-slot gradient rows as payload
     and sums them per gaussian with kernel B3 (``segsum_cuda``); it never
     falls back to ``index_select``'s own backward, an atomic ``index_add_``
-    on CUDA.
+    on CUDA. With an ``absgrad_sink``, |d x| and |d y| of every slot ride
+    the same sort as two more columns, and their sums are the sink's
+    gradient (the reference's ``_gather_rows_abs``).
   - ``raster_tiles`` blends each tile's first ``counts[t]`` slots front to
     back and returns (n_tiles, cp + 1, ts * ts), channel-major: the
     premultiplied channels, then the final transmittance. Differentiable
@@ -46,10 +48,12 @@ class _GatherRows(torch.autograd.Function):
     """``packed.index_select(1, safe)`` with a deterministic adjoint that
     routes only the first ``nfields`` rows (the rest are zero pad), keyed by
     ``keys``: ``safe``, or ``n`` (dropped by the segment sum) for a slot
-    past its tile's count."""
+    past its tile's count. ``sink`` (zero (n, 2) or None) does not enter
+    the forward; its gradient is the per-gaussian sum of |d row 0| and
+    |d row 1| (x and y), two more columns of the same segment sum."""
 
     @staticmethod
-    def forward(ctx, packed, safe, keys, nfields):
+    def forward(ctx, packed, safe, keys, nfields, sink):
         ctx.save_for_backward(keys)
         ctx.n = packed.shape[1]
         ctx.nfields = nfields
@@ -59,14 +63,19 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (keys,) = ctx.saved_tensors
         keys, perm = torch.sort(keys, stable=True)
-        payload = g[: ctx.nfields].index_select(1, perm).contiguous()
+        f = ctx.nfields
+        cols = g[:f]
+        if ctx.needs_input_grad[4]:
+            cols = torch.cat([cols, g[0:2].abs()])
+        payload = cols.index_select(1, perm).contiguous()
         summed = segment_sum_cols(payload, keys, ctx.n)
         d_packed = torch.zeros((g.shape[0], ctx.n), dtype=g.dtype, device=g.device)
-        d_packed[: ctx.nfields] = summed
-        return d_packed, None, None, None
+        d_packed[:f] = summed[:f]
+        d_sink = summed[f:].T if ctx.needs_input_grad[4] else None
+        return d_packed, None, None, None, d_sink
 
 
-def gather_slots(packed, slot_gids, counts, nfields: int) -> torch.Tensor:
+def gather_slots(packed, slot_gids, counts, nfields: int, sink=None) -> torch.Tensor:
     """Columns ``slot_gids`` (clamped to [0, N)) of the field-major
     ``packed`` (rows, N): (rows, n_slots), n_slots / n_tiles slots for each
     of the tiles whose ``counts`` (n_tiles,) are given.
@@ -77,23 +86,25 @@ def gather_slots(packed, slot_gids, counts, nfields: int) -> torch.Tensor:
     their clamped id names. No sum changes, and the padding past the sorted
     list, which clamps to one id, makes no single long segment for the
     segment sum. Only the first ``nfields`` rows are routed back; the rest
-    are zero pad.
+    are zero pad. ``sink`` (zero (N, 2)) receives the absolute slot
+    gradients of rows 0 and 1 (``_GatherRows``).
     """
     N = packed.shape[1]
     safe = slot_gids.reshape(-1).clamp(0, max(N - 1, 0)).to(torch.int64)
-    if torch.is_grad_enabled() and packed.requires_grad:
+    grads = packed.requires_grad or (sink is not None and sink.requires_grad)
+    if torch.is_grad_enabled() and grads:
         cap = safe.shape[0] // max(counts.shape[0], 1)
         live = torch.arange(cap, device=counts.device)[None, :] < counts[:, None]
         keys = torch.where(live.reshape(-1), safe, N).to(torch.int32)
-        return _GatherRows.apply(packed, safe, keys, nfields)
+        return _GatherRows.apply(packed, safe, keys, nfields, sink)
     return packed.index_select(1, safe)
 
 
 def gather_tile_data(means2d, conics, colors, opacities, slot_gids,
-                     counts) -> torch.Tensor:
+                     counts, absgrad_sink=None) -> torch.Tensor:
     """(6 + cp, n_slots) f32 field-major packed rows x, y, conic a/b/c,
     opacity and cp = max(4, C) channels for the slot table ``slot_gids``
-    (``gather_slots``)."""
+    (``gather_slots``, which also feeds ``absgrad_sink``)."""
     N = means2d.shape[0]
     C = colors.shape[-1]
     cp = max(_MIN_CHANNELS, C)
@@ -104,7 +115,7 @@ def gather_tile_data(means2d, conics, colors, opacities, slot_gids,
     ] + [colors[:, c] for c in range(C)]
     cols = [c.to(torch.float32) for c in cols]
     cols += [torch.zeros((N,), dtype=torch.float32, device=means2d.device)] * (cp - C)
-    return gather_slots(torch.stack(cols, dim=0), slot_gids, counts, 6 + C)
+    return gather_slots(torch.stack(cols, dim=0), slot_gids, counts, 6 + C, absgrad_sink)
 
 
 def _geometry(tiles, pd, k0, K, counts, ts, tw, config):

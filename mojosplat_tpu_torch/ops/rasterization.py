@@ -26,6 +26,11 @@ Two routes:
     gather's adjoint, a stable sort plus the segment sum B3 over the slots
     the blend reads; the binning outputs are integers and carry none. On CPU tensors every kernel runs
     its plain version.
+
+An ``absgrad_sink`` (zero (N, 2)) collects, per gaussian, the sum over
+tiles of |d loss / d means2d restricted to that tile|: on the ``"torch"``
+route through a tap on every (tile, slot) centre (``_AbsTap``), on the
+``"cuda"`` route through two extra columns of the gather's adjoint.
 """
 
 from __future__ import annotations
@@ -53,6 +58,21 @@ def tile_pixel_centers(tiles: torch.Tensor, ts: int, tw: int, dtype):
     px = (tile_x[:, None] * ts + (p % ts)[None, :]).to(dtype) + 0.5
     py = (tile_y[:, None] * ts + (p // ts)[None, :]).to(dtype) + 0.5
     return px, py
+
+
+class _AbsTap(torch.autograd.Function):
+    """Identity on ``means_k`` (``sink_k`` is zero by contract) whose
+    backward also hands |cotangent| to ``sink_k``: one (tile, slot) centre's
+    tile-summed gradient, taken absolute before the sink's gather sums it
+    over tiles (the reference's ``_abs_tap``)."""
+
+    @staticmethod
+    def forward(ctx, means_k, sink_k):
+        return means_k + sink_k
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, ct.abs()
 
 
 def _pixel_terms(px, py, means_k, conics_k, opac_k, valid_k, config):
@@ -167,6 +187,7 @@ def rasterize_gaussians(
     img_height: int,
     img_width: int,
     config: RenderConfig = DEFAULT_CONFIG,
+    absgrad_sink: torch.Tensor | None = None,  # (N, 2) zeros
 ) -> tuple[torch.Tensor, RasterAux]:
     """Rasterize binned gaussians to an (H, W, C) image."""
     ts = config.tile_size
@@ -186,7 +207,8 @@ def rasterize_gaussians(
         counts = torch.clamp(raw_counts, 0, cap).to(torch.int32)
         tile_overflow = torch.clamp(raw_counts - cap, min=0).sum().to(torch.int32)
         slot_gids = segment_slice_gather(binning.gaussian_ids, starts, cap)
-        pdata = gather_tile_data(means2d, conics, colors, opacities, slot_gids, counts)
+        pdata = gather_tile_data(means2d, conics, colors, opacities, slot_gids, counts,
+                                 absgrad_sink)
         out = raster_tiles(pdata, counts, ts, tw, config)
         T_tiles = out[:, max(4, C), :]  # transmittance follows the channels
         out_tiles = out[:, :C, :] + T_tiles[:, None, :] * background[None, :, None]
@@ -197,8 +219,10 @@ def rasterize_gaussians(
         raise ValueError(f"Unknown raster_impl: {config.raster_impl!r}")
 
     def alpha_fn(px, py, safe, valid):
-        return _pixel_alphas(px, py, means2d[safe], conics[safe], opacities[safe], valid,
-                             config)
+        means_k = means2d[safe]
+        if absgrad_sink is not None:
+            means_k = _AbsTap.apply(means_k, absgrad_sink[safe])
+        return _pixel_alphas(px, py, means_k, conics[safe], opacities[safe], valid, config)
 
     return rasterize_torch_generic(alpha_fn, means2d.shape[0], colors, background, binning,
                                    img_height, img_width, config)

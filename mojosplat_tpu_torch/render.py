@@ -6,8 +6,13 @@ the slot gather by the kernels' backward on the ``"cuda"`` route.
 ``features`` is (N, C) RGB (``sh_degree=None``) or (N, K, C) SH
 coefficients.
 
-Not ported yet, and raising ``NotImplementedError``: ``viewport_rows``,
-``means2d_offset`` and ``absgrad_sink``.
+Two zero (N, 2) inputs give the densification statistics their
+gradients without changing the forward: ``means2d_offset`` is added to the
+projected centres, so its cotangent is the view-space positional gradient;
+``absgrad_sink``'s cotangent is the per-gaussian sum over tiles of the
+absolute per-tile view-space gradient (AbsGS / gsplat's absgrad).
+
+Not ported yet, and raising ``NotImplementedError``: ``viewport_rows``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from .ops.sh import sh_to_color
 class RenderAux(NamedTuple):
     binning: BinningAux
     raster: RasterAux
+    visible: torch.Tensor | None = None  # (N,) bool: projected with a radius
 
 
 def render_gaussians(
@@ -50,12 +56,11 @@ def render_gaussians(
     ``return_depth=True`` also returns the (H, W) accumulated depth
     sum_i(w_i * z_i), blended as an extra channel through the same blend.
     With ``return_aux`` the last element is a ``RenderAux`` of counters.
+    ``means2d_offset`` and ``absgrad_sink`` are zero (N, 2) tensors whose
+    gradients are the densification statistics (see the module note).
     """
-    for name, value in (("viewport_rows", viewport_rows),
-                        ("means2d_offset", means2d_offset),
-                        ("absgrad_sink", absgrad_sink)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if viewport_rows is not None:
+        raise NotImplementedError("viewport_rows is not ported yet")
 
     if sh_degree is None:
         if features.ndim != 2:
@@ -88,22 +93,26 @@ def render_gaussians(
         )
 
     proj = project_gaussians(means3d, scales, quats, opacities, camera, config)
+    if means2d_offset is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_offset)
     if config.antialiased:
         opacities = opacities * proj.compensations
 
     binning = bin_gaussians_to_tiles(
-        proj.means2d, proj.radii, proj.depths, camera.H, camera.W, config
+        proj.means2d, proj.radii, proj.depths, camera.H, camera.W, config,
+        conics=proj.conics, opacities=opacities,
     )
     if return_depth:
         colors = torch.cat([colors, proj.depths[:, None].to(colors.dtype)], dim=-1)
         background = torch.cat([background, background.new_zeros((1,))])
     image, raster_aux = rasterize_gaussians(
         proj.means2d, proj.conics, colors, opacities, background, binning,
-        camera.H, camera.W, config,
+        camera.H, camera.W, config, absgrad_sink=absgrad_sink,
     )
     out = (image,)
     if return_depth:
         out = (image[..., :num_channels], image[..., num_channels])
     if return_aux:
-        out = out + (RenderAux(binning=binning.aux, raster=raster_aux),)
+        out = out + (RenderAux(binning=binning.aux, raster=raster_aux,
+                               visible=proj.radii[:, 0] > 0),)
     return out[0] if len(out) == 1 else out

@@ -16,6 +16,7 @@ import torch
 
 from .camera import Camera
 from .config import DEFAULT_CONFIG, RenderConfig
+from .densify import DensifyState, accumulate_stats
 from .ops.sh import num_sh_bases
 from .render import render_gaussians
 from .surfel import normal_consistency_terms, render_surfels
@@ -201,6 +202,51 @@ def train_step(
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def train_step_with_densify_stats(
+    params: Mapping[str, torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    densify_state: DensifyState,
+    cameras: Sequence[Camera],
+    targets: torch.Tensor,  # (B, H, W, C)
+    sh_degree: int | None = None,
+    config: RenderConfig = DEFAULT_CONFIG,
+    absgrad: bool = False,
+) -> tuple[DensifyState, torch.Tensor]:
+    """One optimizer step on the L2 loss that also accumulates the
+    view-space gradient statistics of density control (``densify.py``).
+    Returns (the new ``DensifyState``, the loss, detached).
+
+    A zero (N, 2) input shared by every view takes the statistic's
+    gradient: ``means2d_offset`` (the signed view-space gradient), or with
+    ``absgrad`` the ``absgrad_sink`` (the sum over tiles of its absolute
+    per-tile value, AbsGS; use a 2-4x higher ``grad_threshold``). The views
+    are rendered one after another and stacked under one
+    ``l2_image_loss``. A gaussian counts as seen when some view's
+    projection in the render gives it a radius.
+    """
+    if len(cameras) != targets.shape[0]:
+        raise ValueError(f"{len(cameras)} cameras for {targets.shape[0]} targets")
+    n = params["means3d"].shape[0]
+    optimizer.zero_grad(set_to_none=True)
+    sink = torch.zeros((n, 2), dtype=torch.float32, device=params["means3d"].device,
+                       requires_grad=True)
+    p = activate(params)
+    imgs, visible = [], torch.zeros((n,), dtype=torch.bool, device=sink.device)
+    for cam in cameras:
+        img, aux = render_gaussians(
+            p["means3d"], p["scales"], p["quats"], p["opacities"], p["features"], cam,
+            sh_degree=sh_degree, config=config, return_aux=True,
+            **{"absgrad_sink" if absgrad else "means2d_offset": sink},
+        )
+        imgs.append(img)
+        visible |= aux.visible
+    loss = l2_image_loss(torch.stack(imgs), targets)
+    loss.backward()
+    densify_state = accumulate_stats(densify_state, sink.grad, visible)
+    optimizer.step()
+    return densify_state, loss.detach()
 
 
 def surfel_loss(

@@ -4,11 +4,14 @@ one NVIDIA GPU.
 
 Run from the repository root:
 
-    python3 scripts/port_profile.py [--family 3dgs|2dgs] [--mode train|render] [--steps 5]
+    python3 scripts/port_profile.py [--family 3dgs|2dgs] [--mode train|render|bin]
+                                    [--aabb] [--steps 5]
 
 The setup is chip_smoke.py's: the trained 1M-gaussian scene at 1920x1080,
-SH degree 3, its budgets (tile_size 32, max_tile_span 4, 8x capacity,
-tile_capacity 512), the "cuda" route; for ``train``, Adam from the same
+SH degree 3, its budgets (bench.py's preset 6: tile_size 32,
+max_tile_span 4, 8x capacity, tile_capacity 512, tight_cull; ``--aabb``
+turns the culling off), the "cuda" route; ``bin`` times the 3DGS binning
+alone on the scene's projection; for ``train``, Adam from the same
 seeded perturbation towards the render of the unperturbed scene. With
 ``--family 2dgs`` the scene is read as disks (its first two log-scales),
 rendered by ``render_surfels`` with the depth, normal and distortion maps,
@@ -54,9 +57,12 @@ def device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", choices=("3dgs", "2dgs"), default="3dgs")
-    ap.add_argument("--mode", choices=("train", "render"), default="train")
+    ap.add_argument("--mode", choices=("train", "render", "bin"), default="train")
+    ap.add_argument("--aabb", action="store_true", help="preset 6 without tight_cull")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
+    if args.mode == "bin" and args.family != "3dgs":
+        raise SystemExit("port_profile: --mode bin profiles the 3DGS binning")
     if not torch.cuda.is_available():
         raise SystemExit("port_profile: torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
@@ -64,6 +70,8 @@ def main() -> int:
         H, PERTURB, SCENE_BUDGETS, SURFEL_WEIGHTS, TRAIN_LR, TRAIN_SEED, W)
     from mojosplat_tpu_torch import RenderConfig, render_gaussians, render_surfels
     from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.ops.binning import bin_gaussians_to_tiles
+    from mojosplat_tpu_torch.ops.projection import project_gaussians
     from mojosplat_tpu_torch.train import (
         activate, make_optimizer, train_step, train_step_surfel)
     from mojosplat_tpu_torch.utils.compress import load_compressed_scene
@@ -80,7 +88,7 @@ def main() -> int:
     raw = load_compressed_scene(str(ROOT / TRAINED_SCENE))
     sh_degree = int(round(raw["features"].shape[1] ** 0.5)) - 1
     cam = scene_camera(H, W, device=dev)
-    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    cfg = RenderConfig(raster_impl="cuda", **dict(SCENE_BUDGETS, tight_cull=not args.aabb))
     keys = ("means3d", "scales", "quats", "opacities", "features")
     if args.family == "2dgs":
         raw = dict(raw, scales=np.ascontiguousarray(raw["scales"][:, :2]))
@@ -116,6 +124,15 @@ def main() -> int:
 
         def step():
             train(leaves, opt, target)
+    elif args.mode == "bin":
+        p = activate(params_from_numpy(raw, dev))
+        with torch.no_grad():
+            proj = project_gaussians(p["means3d"], p["scales"], p["quats"], p["opacities"],
+                                     cam, cfg)
+
+        def step():
+            bin_gaussians_to_tiles(proj.means2d, proj.radii, proj.depths, H, W, cfg,
+                                   conics=proj.conics, opacities=p["opacities"])
     else:
         p = activate(params_from_numpy(raw, dev))
 
@@ -163,7 +180,8 @@ def main() -> int:
     for name, ms, calls in rows[:30]:
         print(f"{ms:14.4f} {ms / busy_ms:7.2%} {calls:10.1f}  {name[:110]}")
     print(json.dumps(dict(
-        family=args.family, mode=args.mode, device=torch.cuda.get_device_name(0),
+        family=args.family, mode=args.mode, tight_cull=cfg.tight_cull,
+        device=torch.cuda.get_device_name(0),
         nvidia_smi=smi,
         steps=args.steps, step_ms=step_ms, wall_ms=wall, profiled_step_ms=profiled_ms,
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / step_ms,

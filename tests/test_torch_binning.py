@@ -137,8 +137,20 @@ def test_binning_limits_raise():
     t = torch.zeros((4, 2))
     r = torch.ones((4, 2), dtype=torch.int32)
     d = torch.ones(4)
-    with pytest.raises(NotImplementedError):
-        tbin.bin_gaussians_to_tiles(t, r, d, H, W, tbin.RenderConfig(tight_cull=True))
+    # tight_cull: its masks hold spans up to 8; without conics (the surfel
+    # binning) it changes nothing.
+    conics = torch.tensor([[1.0, 0.0, 1.0]]).repeat(4, 1)
+    opac = torch.full((4,), 0.5)
+    with pytest.raises(ValueError, match="tight_cull"):
+        tbin.bin_gaussians_to_tiles(t, r, d, H, W, tbin.RenderConfig(tight_cull=True),
+                                    conics=conics, opacities=opac)
+    inert = tbin.bin_gaussians_to_tiles(t, r, d, H, W, tbin.RenderConfig(tight_cull=True))
+    off = tbin.bin_gaussians_to_tiles(t, r, d, H, W, tbin.RenderConfig())
+    assert torch.equal(inert.gaussian_ids, off.gaussian_ids)
+    tight = tbin.bin_gaussians_to_tiles(t, r, d, H, W,
+                                        tbin.RenderConfig(tight_cull=True, max_tile_span=8),
+                                        conics=conics, opacities=opac)
+    assert int(tight.aux.num_isects) == 4 and int(tight.aux.tight_culled) == 0
     with pytest.raises(ValueError):
         tbin.bin_gaussians_to_tiles(t, r, d, H, W, tbin.RenderConfig(max_tile_span=256))
     with pytest.raises(ValueError):

@@ -16,17 +16,25 @@ other orders; a flip would move one pixel's share of a slot's sum). B3 agrees wi
 (another order of f32 adds) and is bitwise equal to itself, as are the
 gradients of the packed gather. The surfel blend B6/B7 is held to B1's
 rule and its backward B8 to B2's, and B8 is bitwise equal to itself.
+The probe's variants (B9) are held to B1's rule, blend1 and blend3 with a
+share of 0.5% (a weight's bf16 rounding turns an f32 ulp into 2^-8 of the
+product), blend and memonly within 1e-6 of the row's scale; its full
+variant is bit-equal to B1. With tight_cull, the "cuda" route bins
+exactly as the "torch" route (ids and counters) and renders by B1's rule;
+the absgrad and view-space sinks' gradients of the two routes agree by
+B2's rule.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mojosplat_tpu_torch import Camera, RenderConfig
+from mojosplat_tpu_torch import Camera, RenderConfig, render_gaussians
 from mojosplat_tpu_torch.ops.expand_cuda import (
     segment_expand_offsets, segment_expand_offsets_plain)
 from mojosplat_tpu_torch.ops.raster_cuda import (
     gather_tile_data, raster_tiles, raster_tiles_bwd_plain, raster_tiles_plain)
+from mojosplat_tpu_torch.ops.raster_probe import VARIANTS, raster_variant, raster_variant_plain
 from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
 from mojosplat_tpu_torch.ops.slice_cuda import (
     segment_slice_gather, segment_slice_gather_plain)
@@ -269,3 +277,73 @@ def test_surfel_kernels_reject_what_they_do_not_take(dev):
         raster_surfel_tiles(torch.zeros((16, 256), device=dev), counts, 16, 2, cfg, True)
     with pytest.raises(ValueError):  # 64x64 tiles exceed one block
         raster_surfel_tiles(torch.zeros((16, 256), device=dev), counts, 64, 2, cfg)
+
+
+@pytest.mark.parametrize("ts,cp,chunk", [(16, 4, 256), (32, 4, 128), (8, 6, 64)])
+def test_probe_kernels_match_plain(dev, ts, cp, chunk):
+    rng = np.random.default_rng(ts + cp + chunk)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(_pdata(rng, n_tiles, tw, ts, cap, cp)).to(dev)
+    counts = torch.tensor([0, 1, 2, 31, 255, 256, 257, 300, 400, 511, 512, 600],
+                          dtype=torch.int32, device=dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap)
+    b1 = raster_tiles(pdata, counts, ts, tw, cfg)
+    for variant in VARIANTS:
+        got = raster_variant(variant, pdata, counts, ts, tw, cfg, chunk)
+        want = raster_variant_plain(variant, pdata, counts, ts, tw, cfg, chunk)
+        torch.cuda.synchronize()
+        assert got.shape == (n_tiles, cp + 1, ts * ts), variant
+        scale = want.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1e-30)
+        diff = (got - want).abs() / scale
+        if variant in ("blend", "memonly"):
+            assert float(diff.max()) <= 1e-6, variant
+        else:
+            # The plain blend1/blend3 walk the kernel's f32 chain, so they
+            # meet at f32 rounding, far inside the bf16 product's effect.
+            atol = 1e-7 if variant in ("blend1", "blend3") else 1e-5
+            assert int((diff > atol).sum()) <= 1e-4 * diff.numel(), variant
+            assert float(diff.max()) <= 5e-3, variant
+            if atol < 1e-5:
+                moved = ((want - b1).abs() / scale > atol).float().mean()
+                assert float(moved) >= 1e-2, variant
+        assert torch.all(got[0, cp] == 1.0) and torch.all(got[0, :cp] == 0.0), variant
+        if variant == "full":
+            assert torch.equal(got, b1)
+    with pytest.raises(ValueError):  # the chunk must divide the tile capacity
+        raster_variant("noscan", pdata, counts, ts, tw, cfg, 96)
+
+
+def test_tight_cull_and_sinks_match_torch_route(dev):
+    rng = np.random.default_rng(7)
+    n, H, W = 3000, 96, 160
+    means = np.concatenate([rng.normal(0, 1.0, (n, 2)), rng.uniform(1.5, 6.0, (n, 1))], 1)
+    scales = np.stack([rng.normal(-2.0, 0.4, n), rng.normal(-3.8, 0.4, n),
+                       rng.normal(-3.0, 0.2, n)], 1)
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in dict(
+        means3d=means, scales=scales, quats=rng.normal(size=(n, 4)),
+        opacities=rng.uniform(0.02, 0.95, n), features=rng.uniform(0, 1, (n, 3))).items()}
+    cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=H, W=W, fx=120.0, fy=120.0, cx=W / 2,
+                        cy=H / 2, device=dev)
+    w = torch.from_numpy(rng.normal(size=(H, W, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for route in ("torch", "cuda"):
+        cfg = RenderConfig(raster_impl=route, tight_cull=True, max_tile_span=8,
+                           tile_capacity=256)
+        sinks = [torch.zeros((n, 2), device=dev, requires_grad=True) for _ in range(2)]
+        img, aux = render_gaussians(*(p[k] for k in ("means3d", "scales", "quats", "opacities",
+                                                     "features")), cam, config=cfg,
+                                    return_aux=True, means2d_offset=sinks[0],
+                                    absgrad_sink=sinks[1])
+        (img * w).sum().backward()
+        out[route] = (img.detach(), aux.binning, [s.grad for s in sinks])
+    torch.cuda.synchronize()
+    (img_t, bin_t, g_t), (img_c, bin_c, g_c) = out["torch"], out["cuda"]
+    assert int(bin_c.tight_culled) > 0
+    for name in bin_t._fields:
+        assert int(getattr(bin_c, name)) == int(getattr(bin_t, name)), name
+    diff = (img_c - img_t).abs()
+    assert int((diff > 1e-5).sum()) <= 1e-4 * diff.numel() and float(diff.max()) <= 5e-3
+    for got, want in zip(g_c, g_t):
+        rel = (got - want).abs() / (want.abs().amax() + 1e-12)
+        assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel() and float(rel.max()) <= 1e-3
+    assert bool((g_c[1] >= g_c[0].abs() - 1e-6 * g_c[0].abs().amax()).all())

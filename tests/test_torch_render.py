@@ -7,7 +7,13 @@
     tolerances of tests/test_golden.py;
 (c) the trained-scene loader, exactly equal to the JAX package's;
 (d) the port imports without jax;
-(e) what is not ported yet raises ``NotImplementedError``.
+(e) what is not ported yet raises ``NotImplementedError``; the options
+    ported since (``tight_cull``, ``means2d_offset``, ``absgrad_sink``)
+    leave the forward unchanged;
+(f) the densification sinks' cotangents on both port routes against JAX's
+    "xla" route at the gradient tolerance (rtol 5e-5, atol 5e-6 x max|g|),
+    and absgrad against JAX's "pallas" route at that route's own tolerance
+    in tests/test_absgrad.py (rtol 2e-3, atol 1e-5).
 """
 
 import dataclasses
@@ -148,7 +154,8 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import mojosplat_tpu_torch, mojosplat_tpu_torch.convert\n"
         "import mojosplat_tpu_torch.ops.raster_cuda, mojosplat_tpu_torch.train\n"
-        "import mojosplat_tpu_torch.ops.segsum_cuda\n"
+        "import mojosplat_tpu_torch.ops.segsum_cuda, mojosplat_tpu_torch.ops.raster_probe\n"
+        "import mojosplat_tpu_torch.densify\n"
         "import mojosplat_tpu_torch.utils.scenes, mojosplat_tpu_torch.utils.compress\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
@@ -166,25 +173,94 @@ def test_unported_options_raise():
     cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0,
                         cx=8.0, cy=8.0, device="cpu")
     args = [p[k] for k in KEYS] + [cam]
-    for kw in (dict(viewport_rows=(0, 16)), dict(means2d_offset=torch.zeros(8, 2)),
-               dict(absgrad_sink=torch.zeros(8, 2)),
-               dict(config=RenderConfig(tight_cull=True)),
+    for kw in (dict(viewport_rows=(0, 16)),
                dict(config=RenderConfig(projection_mode="ut"))):
         with pytest.raises(NotImplementedError):
             render_gaussians(*args, sh_degree=3, **kw)
+    # The ported options: zero sinks and tight culling leave the image as it
+    # was (the culled slots add nothing to any pixel).
+    want = render_gaussians(*args, sh_degree=3)
+    for kw in (dict(means2d_offset=torch.zeros(8, 2)), dict(absgrad_sink=torch.zeros(8, 2)),
+               dict(config=RenderConfig(tight_cull=True, max_tile_span=8))):
+        torch.testing.assert_close(render_gaussians(*args, sh_degree=3, **kw), want,
+                                   rtol=0, atol=1e-6)
     # Both routes differentiate: the torch route through plain autograd, the
-    # cuda route through the blend backward and the gather's adjoint. The
-    # unported options raise there too, with inputs that need grad.
+    # cuda route through the blend backward and the gather's adjoint; the
+    # sinks take gradients on both, and viewport_rows still raises.
     grad_means = p["means3d"].clone().requires_grad_(True)
     grad_args = [grad_means] + args[1:]
     for route in ("torch", "cuda"):
         cfg = RenderConfig(raster_impl=route)
-        for kw in (dict(viewport_rows=(0, 16)), dict(means2d_offset=torch.zeros(8, 2)),
-                   dict(absgrad_sink=torch.zeros(8, 2))):
-            with pytest.raises(NotImplementedError):
-                render_gaussians(*grad_args, sh_degree=3, config=cfg, **kw)
+        with pytest.raises(NotImplementedError):
+            render_gaussians(*grad_args, sh_degree=3, config=cfg, viewport_rows=(0, 16))
+        for name in ("means2d_offset", "absgrad_sink"):
+            sink = torch.zeros(8, 2, requires_grad=True)
+            render_gaussians(*grad_args, sh_degree=3, config=cfg, **{name: sink}).sum().backward()
+            assert sink.grad is not None and bool(sink.grad.abs().sum() > 0), (route, name)
+            if name == "absgrad_sink":
+                assert bool((sink.grad >= 0).all()), route
         grad_means.grad = None
         img = render_gaussians(*grad_args, sh_degree=3, config=cfg)
         img.sum().backward()
         assert grad_means.grad is not None and torch.isfinite(grad_means.grad).all(), route
         assert bool(grad_means.grad.abs().sum() > 0), route
+
+
+SINK_H, SINK_W = 32, 48
+
+
+def sink_scene(n, seed):
+    """RGB gaussians in front of a 48x32 camera."""
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.normal(0, 0.6, (n, 2)), rng.uniform(1.5, 4.0, (n, 1))], 1)
+    f32 = np.float32
+    return dict(means3d=means.astype(f32), scales=rng.normal(-2.3, 0.5, (n, 3)).astype(f32),
+                quats=rng.normal(size=(n, 4)).astype(f32),
+                opacities=rng.uniform(0.05, 0.95, n).astype(f32),
+                features=rng.uniform(0, 1, (n, 3)).astype(f32))
+
+
+def assert_close(got, want, err_msg, rtol, atol):
+    """Within rtol, and atol x the largest |want|."""
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol * (float(np.abs(want).max()) + 1e-12), err_msg=err_msg)
+
+
+def test_sinks_match_jax():
+    n, H, W = 60, SINK_H, SINK_W
+    p = sink_scene(n, 2)
+    w = np.random.default_rng(7).normal(size=(H, W, 3)).astype(np.float32)
+    cam_kw = dict(R=np.eye(3), T=np.zeros(3), H=H, W=W, fx=40.0, fy=40.0, cx=24.0, cy=16.0)
+    jcfg = JConfig(tile_capacity=128, chunk_size=64, max_tile_span=4)
+
+    def jgrads(cfg):
+        """Both sinks' cotangents from one compile."""
+        def loss(offset, sink):
+            img = jrender(*(jnp.asarray(p[k]) for k in KEYS), JCamera.create(**cam_kw),
+                          config=cfg, means2d_offset=offset, absgrad_sink=sink)
+            return jnp.sum(img * w)
+        zero = jnp.zeros((n, 2))
+        grads = jax.jit(jax.grad(loss, argnums=(0, 1)))(zero, zero)
+        return dict(zip(("means2d_offset", "absgrad_sink"), map(np.asarray, grads)))
+
+    jpallas = dataclasses.replace(jcfg, raster_impl="pallas", pallas_chunk=128,
+                                  pallas_interpret=True)
+    want = jgrads(jcfg)
+    want_pallas = jgrads(jpallas)["absgrad_sink"]
+    assert_close(want_pallas, want["absgrad_sink"], "pallas vs xla", 2e-3, 1e-5)
+    tp = params_from_numpy(p, "cpu")
+    for route in ("torch", "cuda"):
+        for name in ("means2d_offset", "absgrad_sink"):
+            sink = torch.zeros((n, 2), requires_grad=True)
+            cfg = dataclasses.replace(config_from_jax(dataclasses.asdict(jcfg)),
+                                      raster_impl=route)
+            cam = Camera.create(**cam_kw, device="cpu")
+            img = render_gaussians(*(tp[k] for k in KEYS), cam, config=cfg, **{name: sink})
+            (img * torch.from_numpy(w)).sum().backward()
+            got = sink.grad.numpy()
+            assert_close(got, want[name], f"{route} {name}", GOLDEN_RTOL, GOLDEN_ATOL)
+            if name == "absgrad_sink":
+                assert_close(got, want_pallas, f"{route} vs pallas", 2e-3, 1e-5)
+                # absgrad dominates the signed gradient component-wise.
+                assert np.all(got >= np.abs(want["means2d_offset"]) - 1e-5)
+    assert np.abs(want["absgrad_sink"]).max() > 0
