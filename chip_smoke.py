@@ -26,7 +26,11 @@ exits nonzero without printing the final result line:
      and within 1e-3 of it everywhere; B3 on the route's real sorted keys
      (the slot ids, dropped past each tile's count) within rtol 1e-5 of
      index_add_. B2 and B3 must be bitwise equal
-     across two runs. Times each with CUDA events (median of 20 runs after
+     across two runs. B1's row test: the kernel's count of skipped
+     (warp, slot) pairs equal to the plain mirror's, no skipped pair that
+     a pixel keeps (brute force), and the shares of pairs no pixel keeps;
+     B1's and B2's ptxas lines and B2's launch shape (cluster, threads,
+     blocks per SM). Times each with CUDA events (median of 20 runs after
      3 warm-ups; 3 runs after 1 for B2's plain version), the least time
      the card could take (bound), and one PyTorch call computing the same
      function where there is one (library).
@@ -244,9 +248,9 @@ def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
     return dict(bound_ms=t_ops, bound_by="operations")
 
 
-def ptxas_report(log: str) -> list[tuple[str, int, str]]:
-    """(mangled kernel name, registers, spill line) of each kernel in
-    ptxas's -v report."""
+def ptxas_report(log: str) -> list[tuple[str, int, str, int]]:
+    """(mangled kernel name, registers, spill line, static shared bytes) of
+    each kernel in ptxas's -v report."""
     out, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -256,8 +260,62 @@ def ptxas_report(log: str) -> list[tuple[str, int, str]]:
             spills = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append((name, int(m.group(1)), spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), spills, int(smem.group(1)) if smem else 0))
             name = None
+    return out
+
+
+def blend_skip_counts(pdata, counts, ts: int, tw: int, config) -> dict:
+    """B1's per-row skip at these inputs. The kernel's count of skipped
+    (warp, slot) pairs must equal the plain mirror's (row_may_apply_plain
+    from B1's own stop indices); by brute force over every pixel (the
+    per-pixel rule's keep), the row test must skip no pair a pixel of the
+    warp keeps. Returns the pairs walked (slot below the pixel's stop) and
+    those of them no pixel keeps (alpha below the threshold or sigma < 0),
+    the (warp, slot) pairs below the count, those no pixel of the warp
+    keeps and those the row test skips, and the pairs B1 tested and
+    skipped."""
+    from mojosplat_tpu_torch.ops.raster_cuda import (
+        B1_WARP_PIXELS, raster_tiles_skips, row_may_apply_plain, skipped_pairs_plain)
+    from mojosplat_tpu_torch.ops.rasterization import _pixel_terms, tile_pixel_centers
+
+    n_tiles, rows = counts.shape[0], pdata.shape[0]
+    cap, P, W = pdata.shape[1] // n_tiles, ts * ts, B1_WARP_PIXELS
+    nw = -(-P // W)
+    skipped, stop = raster_tiles_skips(pdata, counts, ts, tw, config)
+    may = row_may_apply_plain(pdata, n_tiles, ts, tw, config)
+    mirror = skipped_pairs_plain(may, counts, stop)
+    if not torch.equal(skipped, mirror):
+        raise AssertionError(f"B1 skipped {int(skipped.sum())} (warp, slot) pairs, the plain "
+                             f"mirror {int(mirror.sum())}")
+    out = dict(walked=0, walked_unkept=0, warp_slots=0, warp_slots_unkept=0,
+               warp_slots_skipped=0, missed=0,
+               tested=int(skipped_pairs_plain(torch.zeros_like(may), counts, stop).sum()),
+               skipped=int(skipped.sum()))
+    pd = pdata.reshape(rows, n_tiles, cap)
+    slot = torch.arange(cap, device=pdata.device)
+    group = 16  # tiles at a time: (group, ts * ts, cap) per-pixel terms
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=pdata.device)
+        G = tiles.shape[0]
+        px, py = tile_pixel_centers(tiles, ts, tw, torch.float32)
+        live = slot[None, :] < counts[tiles, None]
+        keep = _pixel_terms(px, py, pd[0:2, tiles].permute(1, 2, 0),
+                            pd[2:5, tiles].permute(1, 2, 0), pd[5, tiles], live, config)[1]
+        walked = slot[None, None, :] < stop[tiles][..., None]
+        out["walked"] += int(walked.sum())
+        out["walked_unkept"] += int((walked & ~keep).sum())
+        wkeep = torch.nn.functional.pad(keep, (0, 0, 0, nw * W - P)).reshape(
+            G, nw, W, cap).any(dim=2)
+        wlive = live[:, None, :].expand(G, nw, cap)
+        wmay = may[g0 : g0 + G]
+        out["warp_slots"] += int(wlive.sum())
+        out["warp_slots_unkept"] += int((wlive & ~wkeep).sum())
+        out["warp_slots_skipped"] += int((wlive & ~wmay).sum())
+        out["missed"] += int((wkeep & ~wmay).sum())
+    if out["missed"]:
+        raise AssertionError(f"B1's row test skipped {out['missed']} kept (warp, slot) pairs")
     return out
 
 
@@ -894,8 +952,8 @@ def main() -> int:
         segment_expand_offsets, segment_expand_offsets_plain)
     from mojosplat_tpu_torch.ops.projection import project_gaussians
     from mojosplat_tpu_torch.ops.raster_cuda import (
-        gather_tile_data, raster_tiles, raster_tiles_bwd, raster_tiles_bwd_plain,
-        raster_tiles_fwd, raster_tiles_plain)
+        B1_WARP_PIXELS, gather_tile_data, raster_bwd_shape, raster_tiles, raster_tiles_bwd,
+        raster_tiles_bwd_plain, raster_tiles_fwd, raster_tiles_plain)
     from mojosplat_tpu_torch.ops.raster_probe import raster_variant
     from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
     from mojosplat_tpu_torch.ops.sh import sh_to_color
@@ -925,9 +983,9 @@ def main() -> int:
           f"{', '.join(p.name for p in _kernels.sources())}")
     report = ptxas_report(log)
     probe = [r for r in report if "raster_probe_kernel" in r[0]]
-    for name, regs, spills in report:
+    for name, regs, spills, smem in report:
         if "raster_probe_kernel" not in name:
-            phase("build", f"{name}: {regs} registers, {spills}")
+            phase("build", f"{name}: {regs} registers, {smem} bytes smem, {spills}")
     phase("build", f"B9 raster_probe_kernel: {len(probe)} instantiations, "
           f"{min(r[1] for r in probe)}-{max(r[1] for r in probe)} registers, "
           f"{sum('0 bytes spill stores' not in r[2] for r in probe)} with spills")
@@ -1062,6 +1120,22 @@ def main() -> int:
         ))
         phase("B1", f"pdata {tuple(pdata.shape)}, {slots} slots, {pairs} (pixel, slot) "
               f"pairs walked; bit-equal with the residual written")
+        skips = blend_skip_counts(pdata, counts, ts, tw, cfg_cuda)
+        kernels[-1]["skips"] = skips
+        phase("B1", f"row test: B1 skipped {skips['skipped']} of the {skips['tested']} "
+              f"(warp, slot) pairs its warps ({B1_WARP_PIXELS} pixels each) tested "
+              f"({skips['skipped'] / skips['tested']:.4f}), equal to the plain mirror's count; "
+              f"of the {skips['warp_slots']} (warp, slot) pairs below the counts no pixel "
+              f"keeps {skips['warp_slots_unkept']} "
+              f"({skips['warp_slots_unkept'] / skips['warp_slots']:.4f}) and the row test "
+              f"skips {skips['warp_slots_skipped']} "
+              f"({skips['warp_slots_skipped'] / skips['warp_slots']:.4f}), none kept; of the "
+              f"{skips['walked']} walked (pixel, slot) pairs {skips['walked_unkept']} "
+              f"({skips['walked_unkept'] / skips['walked']:.4f}) are not kept")
+        for name, regs, spills, smem in report:
+            if "raster_fwd_kernel" in name or "raster_bwd_kernel" in name:
+                kid = "B1" if "raster_fwd_kernel" in name else "B2"
+                phase(kid, f"ptxas {name}: {regs} registers, {smem} bytes smem, {spills}")
         del ref, out_r
 
         # B2: pdata's blended slots, gout, the residual's walked chunks and
@@ -1090,8 +1164,14 @@ def main() -> int:
                          + n_tiles + d_pdata.numel()), B2_OPS_PER_PAIR * pairs, pairs),
             library_ms=None,
         ))
+        shape = raster_bwd_shape(rows - 6, ts)
+        kernels[-1]["shape"] = shape
         phase("B2", f"d pdata {tuple(d_pdata.shape)} from a seeded gout; two runs "
-              f"bitwise equal")
+              f"bitwise equal; launch shape: clusters of {shape['cluster']} blocks of "
+              f"{shape['threads']} threads per tile, {shape['registers']} registers, "
+              f"{shape['local_bytes']} local bytes a thread, {shape['shared_bytes']} shared "
+              f"bytes a block, {shape['blocks_per_sm']} blocks per SM, {shape['clusters']} "
+              f"clusters resident")
         del d_want
 
         # B3: the gather adjoint's keys (the clamped slot ids, n past each

@@ -44,12 +44,14 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> argument types of the C entry point (pointers, ints, floats, and
 # the stream last); every entry point returns an int error code. A null
-# pointer is passed as None.
+# pointer is passed as None. raster_bwd_info launches nothing and takes no
+# stream: it reports B2's launch shape into a host int array.
 _SIGNATURES = {
     "expand_offsets_launch": (_P, _I, _I, _P, _I, _P),
     "slice_gather_launch": (_P, _I, _P, _I, _I, _P, _P),
-    "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
+    "raster_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
     "raster_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "raster_bwd_info": (_I, _I, _P),
     "raster_probe_launch": (_I, _I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
     "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),

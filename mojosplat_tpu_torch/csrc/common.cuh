@@ -14,8 +14,9 @@ static inline unsigned ms_blocks(int64_t n, int threads) {
 
 // Slots per chunk of the blend's backward residual: the forward (B1) saves
 // each pixel's transmittance at the entry of every kResidChunk-slot chunk,
-// and the backward (B2) replays one chunk at a time from it, holding the
-// chunk's per-slot transmittance in registers.
+// and the backward (B2) replays one chunk at a time from it, saving the
+// chunk's per-slot transmittance in shared memory. The surfel kernels
+// (B6-B8) use the same residual format.
 constexpr int kResidChunk = 16;
 
 // One slot's alpha at one pixel, the per-pixel rule of rasterization.py:
@@ -44,7 +45,67 @@ __device__ __forceinline__ bool ms_slot_alpha(float dx, float dy, float ca,
     return sigma >= 0.0f && alpha >= alpha_threshold;
 }
 
+// A staged slot record: the slot's 6 + cp fields padded to a whole number of
+// 16-byte words, so a warp reads a slot with a few float4 loads (one
+// broadcast each) instead of one load a field.
+template <int CP>
+__host__ __device__ constexpr int ms_record() { return (6 + CP + 3) / 4 * 4; }
+
+// Staged slot j's fields f[0..rec) from a record array in shared memory.
+template <int CP>
+__device__ __forceinline__ void ms_load_record(const float* records, int j,
+                                               float (&f)[ms_record<CP>()]) {
+    const float4* rec = reinterpret_cast<const float4*>(records) + j * (ms_record<CP>() / 4);
+#pragma unroll
+    for (int q = 0; q < ms_record<CP>() / 4; ++q) {
+        const float4 g = rec[q];
+        f[4 * q] = g.x;
+        f[4 * q + 1] = g.y;
+        f[4 * q + 2] = g.z;
+        f[4 * q + 3] = g.w;
+    }
+}
+
 // Transmittance after a slot of opacity alpha is applied: T * (1 - alpha).
 __device__ __forceinline__ float ms_transmit(float T, float alpha) {
     return __fmul_rn(T, __fsub_rn(1.0f, alpha));
+}
+
+// Whether any pixel of one pixel row may keep a slot under ms_slot_alpha:
+// false only when none can. B1 and B2 skip the slots a warp's rows cannot
+// keep, so both reach the applied set of the full walk, and every float
+// operation on a kept slot stays ms_slot_alpha's.
+//
+// The row's pixel centres run from x_first to x_last at height py. The
+// per-pixel rule rounds dx = mx - x and dy = my - py, and rounding is
+// monotone, so every pixel's dx lies in [mx - x_last, mx - x_first] with
+// this dy. Along the row sigma(dx) = 0.5 a dx^2 + b dy dx + 0.5 c dy^2 is
+// convex for a > 0, so its minimum over that range is at -b dy / a clamped
+// to it. Less a margin of 1e-5 (1 + the terms' magnitude), which covers the
+// few ulps of f32 rounding in this sigma and the pixel's (and the exp's), it
+// bounds every pixel's sigma from below; opacity * exp(-bound) below the
+// threshold then means no pixel of the row keeps the slot (a negative sigma
+// is never kept either). a <= 0, a NaN anywhere and a threshold <= 0 may
+// apply. ops/raster_cuda.py::row_may_apply_plain mirrors each operation.
+__device__ __forceinline__ bool ms_row_may_apply(float mx, float my, float ca, float cb,
+                                                 float cc, float op, float x_first,
+                                                 float x_last, float py,
+                                                 float alpha_threshold) {
+    if (!(alpha_threshold > 0.0f) || !(ca > 0.0f)) return true;
+    const float dy = __fsub_rn(my, py);
+    const float lo = __fsub_rn(mx, x_last);
+    const float hi = __fsub_rn(mx, x_first);
+    const float bdy = __fmul_rn(cb, dy);
+    float t = __fdiv_rn(-bdy, ca);
+    if (t != t) return true;
+    t = fminf(fmaxf(t, lo), hi);
+    const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, t), t), __fmul_rn(__fmul_rn(cc, dy), dy));
+    const float sigma = __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(bdy, t));
+    const float x = fmaxf(fabsf(lo), fabsf(hi));
+    const float mag = __fadd_rn(
+        __fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(ca, x), x),
+                                  __fmul_rn(__fmul_rn(fabsf(cc), dy), dy))),
+        __fmul_rn(fabsf(bdy), x));
+    const float low = __fsub_rn(sigma, __fmul_rn(1e-5f, __fadd_rn(mag, 1.0f)));
+    return !(__fmul_rn(op, expf(-low)) < alpha_threshold);
 }

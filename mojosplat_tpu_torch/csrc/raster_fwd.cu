@@ -8,9 +8,13 @@
 // channel-major: the premultiplied channels, then the final transmittance T.
 //
 // The TPU kernel vectorises the recurrence over a chunk of slots with a lane
-// cumprod and blends on the MXU through a 3-pass bf16 split. Here one block
-// owns one tile and one thread owns one pixel, and each pixel walks the
-// slots in order with the per-pixel rule of rasterization.py:
+// cumprod and blends on the MXU through a 3-pass bf16 split. Here a block
+// owns 256 pixels of a tile (a 32x32 tile is 4 blocks of 8 pixel rows; a
+// smaller tile one block), a warp 64 consecutive pixels and a thread two of
+// them, 32 apart (one column of two rows in a 32x32 tile: they share the
+// slot's loads and dx terms, and their two serial chains overlap). Each
+// pixel walks the slots in order with the per-pixel rule of
+// rasterization.py:
 //
 //   alpha = min(opacity * exp(-sigma), max_alpha)
 //   skip the slot unless sigma >= 0 and alpha >= alpha_threshold
@@ -19,14 +23,26 @@
 //
 // The product runs sequentially in f32, so it differs from the TPU's chunked
 // product at about 1e-6, which can flip the threshold or stop decision on a
-// boundary pixel. Batches of slots are staged in shared memory (each thread
-// loads a share, coalesced along the slot axis, and every pixel then reads
-// the same address: a broadcast). The block leaves once every pixel is done.
+// boundary pixel. Batches of slots are staged in shared memory as 16-byte
+// records (each thread loads a share, coalesced along the slot axis, and a
+// warp then reads a slot with a few float4 broadcasts). A block leaves once
+// all its pixels are done.
 //
-// Bound on the card: the per-pixel exp and blend arithmetic (about 25 flops
-// per pixel and slot) and the latency of the serial walk; the slot table is
-// read once per tile. __launch_bounds__(1024) caps registers at 64 a thread
-// so a 32x32 tile (1024 threads) fits one block.
+// Bound on the card: the per-pixel alpha arithmetic (sigma, the exp and the
+// compares; the probe B9 puts three quarters of the time there) and the
+// issue of the serial walk; the slot table is read once per block. A slot
+// binned to a tile often misses some of its rows: at the trained 1080p
+// view no pixel of a 32-pixel row keeps 39% of the (row, slot) pairs. The
+// per-row skip removes those:
+// for each group of 32 staged slots, lane l tests slot l against the warp's
+// rows (ms_row_may_apply, common.cuh: the closed-form minimum of sigma along
+// the row, with a margin for f32 rounding), a ballot gives the warp its
+// mask, and the warp walks only the set bits. The test never skips a slot
+// some pixel would keep, and a kept slot's float operations are unchanged,
+// so the output and residual are bit-equal to the full walk's. The skipped
+// pairs were the cheap ones (no blend, no T update), so the skip saves less
+// than its share; blocks of 8 rows wait at each batch's barrier only for
+// their own slowest row.
 //
 // The backward's residual, written only when the caller passes its buffers
 // (a separate instantiation, so the no-grad render runs the same code as
@@ -47,14 +63,28 @@
 // so the probe's "full" is B1 itself. The chunk-defined variants (nomask,
 // noscan, blend, memonly) read every slot of each chunk of `chunk` slots
 // that starts below the tile's count, as the TPU kernel reads every lane of
-// such a chunk; their staging batch is the chunk.
+// such a chunk; their staging batch is the chunk. full, exp2, blend1 and
+// blend3 take B1's per-row skip (their alpha is B1's, exp2's up to f32
+// rounding); noexp, whose alpha is not an exponential, walks every slot.
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBatch = 256;  // slots staged in shared memory per step
+constexpr int kBlockPix = 256;  // pixels a block: a 32x32 tile is 4 blocks of 8 rows
+constexpr int kPix = 2;  // pixels a thread: lane l of warp w owns pixels 64 w + l and + 32
+constexpr int kWarpPix = 32 * kPix;  // pixels a warp (raster_cuda.B1_WARP_PIXELS)
+constexpr unsigned kWarp = 0xffffffffu;
+
+// Blocks of a tile, and threads a block: its pixels in whole warps.
+inline int tile_blocks(int ts) { return (ts * ts + kBlockPix - 1) / kBlockPix; }
+inline int block_threads(int ts) {
+    return (std::min(ts * ts, kBlockPix) + kWarpPix - 1) / kWarpPix * 32;
+}
 
 // B1 (kFull) and the probe's variants of it (scripts/dev_kernel_probe.py):
 //   kNoExp   e = 1 - min(sigma, 1) * 0.6 in place of exp(-sigma)
@@ -111,168 +141,272 @@ __device__ __forceinline__ bool variant_alpha(float dx, float dy, float ca, floa
     }
 }
 
+// Whether any pixel of the calling warp may keep staged slot j: the row
+// test (common.cuh) over each pixel row the warp's pixels lie in (one row
+// for 32-pixel tiles), each taken whole.
+template <int CP>
+__device__ __forceinline__ bool warp_may_apply(const float* __restrict__ slots, int j,
+                                               int row_first, int row_last, int tile_x,
+                                               int tile_y, int ts, float alpha_threshold) {
+    float f[ms_record<CP>()];
+    ms_load_record<CP>(slots, j, f);
+    const float x_first = static_cast<float>(tile_x * ts) + 0.5f;
+    const float x_last = static_cast<float>(tile_x * ts + ts - 1) + 0.5f;
+    for (int r = row_first; r <= row_last; ++r) {
+        const float py = static_cast<float>(tile_y * ts + r) + 0.5f;
+        if (ms_row_may_apply(f[0], f[1], f[2], f[3], f[4], f[5], x_first, x_last, py,
+                             alpha_threshold)) {
+            return true;
+        }
+    }
+    return false;
+}
+
 template <int CP, bool RESID, Variant V>
 __device__ __forceinline__ void blend_tile(const float* __restrict__ pdata, int64_t stride,
                                            int cap, const int* __restrict__ counts, int ts,
                                            int tw, float alpha_threshold, float max_alpha,
                                            float eps, float* __restrict__ out,
                                            float* __restrict__ tchunk, int* __restrict__ stop,
-                                           int nch, int chunk) {
+                                           int* __restrict__ skipped, int nch, int chunk) {
     constexpr int kRows = 6 + CP;
     // Variants that read every slot of a chunk begun below the count.
     constexpr bool kWhole = V == Variant::kNoMask || V == Variant::kNoScan ||
                             V == Variant::kBlend || V == Variant::kMemOnly;
-    __shared__ float slots[kRows * kBatch];
+    // Variants whose alpha is ms_slot_alpha's (exp2's up to f32 rounding,
+    // inside the row test's margin) walk only the slots the row test keeps.
+    constexpr bool kSkip = V == Variant::kFull || V == Variant::kExp2 ||
+                           V == Variant::kBlend1 || V == Variant::kBlend3;
+    static_assert(kBatch % 32 == 0 && 32 % kResidChunk == 0, "chunks must tile a warp group");
+    constexpr int kRec = ms_record<CP>();
+    __shared__ __align__(16) float slots[kBatch * kRec];  // slot records
 
-    const int t = blockIdx.x;
-    const int p = threadIdx.x;
-    const int P = blockDim.x;
+    const int nb = (ts * ts + kBlockPix - 1) / kBlockPix;
+    const int t = blockIdx.x / nb;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int P = ts * ts;
+    // The warp's first pixel in the tile; this thread owns w0 + lane + 32 k.
+    const int w0 = (blockIdx.x - t * nb) * kBlockPix + (tid >> 5) * kWarpPix;
     const int count = min(max(counts[t], 0), cap);  // never past the tile
     const int tile_y = t / tw;
     const int tile_x = t - tile_y * tw;
-    const float px = static_cast<float>(tile_x * ts + p % ts) + 0.5f;
-    const float py = static_cast<float>(tile_y * ts + p / ts) + 0.5f;
+    // The pixel rows of this warp's pixels.
+    const int row_first = w0 / ts;
+    const int row_last = min(w0 + kWarpPix - 1, P - 1) / ts;
     const int batch = kWhole ? chunk : kBatch;
 
-    float T = 1.0f;
-    bool done = false;
-    int stop_at = count;
-    float* tres = RESID ? tchunk + static_cast<int64_t>(t) * nch * P + p : nullptr;
-    float acc[CP];
+    // Each of the thread's pixels: a pixel past the tile starts done.
+    int p[kPix];
+    float px[kPix], py[kPix], T[kPix];
+    bool done[kPix];
+    int stop_at[kPix];
+    float acc[kPix][CP];
 #pragma unroll
-    for (int c = 0; c < CP; ++c) acc[c] = 0.0f;
+    for (int k = 0; k < kPix; ++k) {
+        p[k] = w0 + lane + 32 * k;
+        px[k] = static_cast<float>(tile_x * ts + p[k] % ts) + 0.5f;
+        py[k] = static_cast<float>(tile_y * ts + p[k] / ts) + 0.5f;
+        T[k] = 1.0f;
+        done[k] = p[k] >= P;
+        stop_at[k] = count;
+#pragma unroll
+        for (int c = 0; c < CP; ++c) acc[k][c] = 0.0f;
+    }
+    float* tres = RESID ? tchunk + static_cast<int64_t>(t) * nch * P : nullptr;
+    int nskip = 0;
+    auto all_done = [&]() {
+        bool all = true;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) all = all && done[k];
+        return all;
+    };
 
     const float* tile = pdata + static_cast<int64_t>(t) * cap;
     for (int b0 = 0; b0 < count; b0 += batch) {
         const int n = kWhole ? min(batch, cap - b0) : min(kBatch, count - b0);
-        for (int i = p; i < kRows * n; i += P) {
+        for (int i = tid; i < kRows * n; i += blockDim.x) {
             const int r = i / n;
             const int j = i - r * n;
-            slots[r * kBatch + j] = __ldg(tile + r * stride + b0 + j);
+            slots[j * kRec + r] = __ldg(tile + r * stride + b0 + j);
         }
         __syncthreads();
         if constexpr (V == Variant::kMemOnly) {
 #pragma unroll
             for (int c = 0; c < CP; ++c) {
                 float s = 0.0f;
-                for (int r = 0; r < kRows; ++r) s += slots[r * kBatch + c];
-                acc[c] += s;
+                for (int r = 0; r < kRows; ++r) s += slots[c * kRec + r];
+#pragma unroll
+                for (int k = 0; k < kPix; ++k) acc[k][c] += s;
             }
         } else if constexpr (V == Variant::kBlend) {
             for (int j = 0; j < n; ++j) {
-                const float op = slots[5 * kBatch + j];
+                const float op = slots[j * kRec + 5];
 #pragma unroll
-                for (int c = 0; c < CP; ++c) acc[c] += op * slots[(6 + c) * kBatch + j];
+                for (int k = 0; k < kPix; ++k) {
+#pragma unroll
+                    for (int c = 0; c < CP; ++c) acc[k][c] += op * slots[j * kRec + 6 + c];
+                }
             }
         } else if constexpr (V == Variant::kNoScan) {
             for (int j = 0; j < n; ++j) {
-                float alpha;
-                if (b0 + j >= count ||
-                    !variant_alpha<V>(slots[0 * kBatch + j] - px, slots[1 * kBatch + j] - py,
-                                      slots[2 * kBatch + j], slots[3 * kBatch + j],
-                                      slots[4 * kBatch + j], slots[5 * kBatch + j],
-                                      alpha_threshold, max_alpha, alpha)) {
-                    continue;
-                }
-                const float w = alpha * T;
+                float f[kRec];
+                ms_load_record<CP>(slots, j, f);
 #pragma unroll
-                for (int c = 0; c < CP; ++c) acc[c] += w * slots[(6 + c) * kBatch + j];
+                for (int k = 0; k < kPix; ++k) {
+                    float alpha;
+                    if (b0 + j >= count ||
+                        !variant_alpha<V>(f[0] - px[k], f[1] - py[k], f[2], f[3], f[4], f[5],
+                                          alpha_threshold, max_alpha, alpha)) {
+                        continue;
+                    }
+                    const float w = alpha * T[k];
+#pragma unroll
+                    for (int c = 0; c < CP; ++c) acc[k][c] += w * f[6 + c];
+                }
             }
-            T = __fmul_rn(T, 0.999f);
-        } else if (!done) {
-            for (int j = 0; j < n; ++j) {
-                if (RESID && ((b0 + j) % kResidChunk) == 0) {
-                    tres[static_cast<int64_t>((b0 + j) / kResidChunk) * P] = T;
-                }
-                const float dx = slots[0 * kBatch + j] - px;
-                const float dy = slots[1 * kBatch + j] - py;
-                float alpha;
-                if (!variant_alpha<V>(dx, dy, slots[2 * kBatch + j], slots[3 * kBatch + j],
-                                      slots[4 * kBatch + j], slots[5 * kBatch + j],
-                                      alpha_threshold, max_alpha, alpha)) {
-                    continue;
-                }
-                const float next_T = ms_transmit(T, alpha);
-                if (next_T <= eps) {
-                    done = true;
-                    stop_at = b0 + j;
-                    break;
-                }
-                // The bf16 variants round w = alpha * T itself (never an FMA
-                // of it into w - wh); a product of two bf16 values is exact in
-                // f32, so their sums match the plain version's bit for bit.
-                if constexpr (V == Variant::kBlend1) {
-                    const float wh = bf16_round(__fmul_rn(alpha, T));
 #pragma unroll
-                    for (int c = 0; c < CP; ++c) {
-                        acc[c] += wh * bf16_round(slots[(6 + c) * kBatch + j]);
+            for (int k = 0; k < kPix; ++k) T[k] = __fmul_rn(T[k], 0.999f);
+        } else {
+            // Groups of 32 slots: lane l tests slot g + l against the warp's
+            // rows, and the warp walks only the slots some row may keep, in
+            // order. T does not change over a skipped slot, so the residual
+            // still gets T at the entry of every chunk the pixel reaches
+            // alive. Without the skip (noexp, nomask) every slot may apply.
+            // A thread computes both pixels' alphas before either's T update,
+            // so the two chains overlap.
+            for (int g = 0; g < n; g += 32) {
+                if (__all_sync(kWarp, all_done())) break;
+                const int valid = min(32, n - g);
+                bool may = lane < valid;
+                if constexpr (kSkip) {
+                    may = may && warp_may_apply<CP>(slots, g + lane, row_first, row_last,
+                                                    tile_x, tile_y, ts, alpha_threshold);
+                }
+                const unsigned m = __ballot_sync(kWarp, may);
+                nskip += valid - __popc(m);
+#pragma unroll
+                for (int h = 0; h < 32; h += kResidChunk) {
+                    if (h >= valid) break;
+                    if (RESID) {
+                        const int64_t o = static_cast<int64_t>((b0 + g + h) / kResidChunk) * P;
+#pragma unroll
+                        for (int k = 0; k < kPix; ++k) {
+                            if (!done[k]) tres[o + p[k]] = T[k];
+                        }
                     }
-                } else if constexpr (V == Variant::kBlend3) {
-                    const float wr = __fmul_rn(alpha, T);
-                    const float wh = bf16_round(wr);
-                    const float wl = bf16_round(__fsub_rn(wr, wh));
+                    unsigned bits = (m >> h) & (0xffffffffu >> (32 - kResidChunk));
+                    while (bits != 0u) {
+                        const int j = g + h + __ffs(bits) - 1;
+                        bits &= bits - 1u;
+                        if (all_done()) continue;
+                        float f[kRec];
+                        ms_load_record<CP>(slots, j, f);
+                        float alpha[kPix];
+                        bool keep[kPix];
 #pragma unroll
-                    for (int c = 0; c < CP; ++c) {
-                        const float ch = slots[(6 + c) * kBatch + j];
-                        const float chh = bf16_round(ch);
-                        const float cl = bf16_round(ch - chh);
-                        acc[c] += (wh * chh + wh * cl) + wl * chh;
+                        for (int k = 0; k < kPix; ++k) {
+                            const bool kept =
+                                variant_alpha<V>(f[0] - px[k], f[1] - py[k], f[2], f[3], f[4],
+                                                 f[5], alpha_threshold, max_alpha, alpha[k]);
+                            keep[k] = kept && !done[k];
+                        }
+#pragma unroll
+                        for (int k = 0; k < kPix; ++k) {
+                            if (!keep[k]) continue;
+                            const float next_T = ms_transmit(T[k], alpha[k]);
+                            if (next_T <= eps) {
+                                done[k] = true;
+                                stop_at[k] = b0 + j;
+                                continue;
+                            }
+                            // The bf16 variants round w = alpha * T itself
+                            // (never an FMA of it into w - wh); a product of
+                            // two bf16 values is exact in f32, so their sums
+                            // match the plain version's bit for bit.
+                            if constexpr (V == Variant::kBlend1) {
+                                const float wh = bf16_round(__fmul_rn(alpha[k], T[k]));
+#pragma unroll
+                                for (int c = 0; c < CP; ++c) {
+                                    acc[k][c] += wh * bf16_round(f[6 + c]);
+                                }
+                            } else if constexpr (V == Variant::kBlend3) {
+                                const float wr = __fmul_rn(alpha[k], T[k]);
+                                const float wh = bf16_round(wr);
+                                const float wl = bf16_round(__fsub_rn(wr, wh));
+#pragma unroll
+                                for (int c = 0; c < CP; ++c) {
+                                    const float ch = f[6 + c];
+                                    const float chh = bf16_round(ch);
+                                    const float cl = bf16_round(ch - chh);
+                                    acc[k][c] += (wh * chh + wh * cl) + wl * chh;
+                                }
+                            } else {
+                                const float w = alpha[k] * T[k];
+#pragma unroll
+                                for (int c = 0; c < CP; ++c) acc[k][c] += w * f[6 + c];
+                            }
+                            T[k] = next_T;
+                        }
                     }
-                } else {
-                    const float w = alpha * T;
-#pragma unroll
-                    for (int c = 0; c < CP; ++c) acc[c] += w * slots[(6 + c) * kBatch + j];
                 }
-                T = next_T;
             }
         }
         // A barrier too: no thread reloads the batch while another reads it.
-        if (__syncthreads_count(done ? 0 : 1) == 0) break;
+        if (__syncthreads_count(all_done() ? 0 : 1) == 0) break;
     }
 
-    float* o = out + static_cast<int64_t>(t) * (CP + 1) * P + p;
+    if (skipped != nullptr && lane == 0) {
+        skipped[static_cast<int64_t>(t) * ((P + kWarpPix - 1) / kWarpPix) + w0 / kWarpPix] =
+            nskip;
+    }
 #pragma unroll
-    for (int c = 0; c < CP; ++c) o[c * P] = acc[c];
-    o[CP * P] = T;
-    if (RESID) stop[static_cast<int64_t>(t) * P + p] = stop_at;
+    for (int k = 0; k < kPix; ++k) {
+        if (p[k] >= P) continue;
+        float* o = out + static_cast<int64_t>(t) * (CP + 1) * P + p[k];
+#pragma unroll
+        for (int c = 0; c < CP; ++c) o[c * P] = acc[k][c];
+        o[CP * P] = T[k];
+        if (RESID) stop[static_cast<int64_t>(t) * P + p[k]] = stop_at[k];
+    }
 }
 
 template <int CP, bool RESID>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kBlockPix / kPix, 8)
 raster_fwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
                   const int* __restrict__ counts, int ts, int tw,
                   float alpha_threshold, float max_alpha, float eps,
                   float* __restrict__ out, float* __restrict__ tchunk,
-                  int* __restrict__ stop, int nch) {
+                  int* __restrict__ stop, int* __restrict__ skipped, int nch) {
     blend_tile<CP, RESID, Variant::kFull>(pdata, stride, cap, counts, ts, tw,
                                           alpha_threshold, max_alpha, eps, out, tchunk,
-                                          stop, nch, kBatch);
+                                          stop, skipped, nch, kBatch);
 }
 
 template <int CP, Variant V>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kBlockPix / kPix, 8)
 raster_probe_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
                     const int* __restrict__ counts, int ts, int tw,
                     float alpha_threshold, float max_alpha, float eps,
                     float* __restrict__ out, int chunk) {
     blend_tile<CP, false, V>(pdata, stride, cap, counts, ts, tw, alpha_threshold,
-                             max_alpha, eps, out, nullptr, nullptr, 0, chunk);
+                             max_alpha, eps, out, nullptr, nullptr, nullptr, 0, chunk);
 }
 
 template <int CP>
 void launch(const float* pdata, int n_tiles, int cap, const int* counts,
             int ts, int tw, float alpha_threshold, float max_alpha, float eps,
-            float* out, float* tchunk, int* stop, cudaStream_t stream) {
+            float* out, float* tchunk, int* stop, int* skipped, cudaStream_t stream) {
     const int64_t stride = static_cast<int64_t>(n_tiles) * cap;
     const int nch = (cap + kResidChunk - 1) / kResidChunk;
     if (tchunk != nullptr) {
-        raster_fwd_kernel<CP, true><<<n_tiles, ts * ts, 0, stream>>>(
+        raster_fwd_kernel<CP, true><<<n_tiles * tile_blocks(ts), block_threads(ts), 0, stream>>>(
             pdata, stride, cap, counts, ts, tw, alpha_threshold, max_alpha, eps,
-            out, tchunk, stop, nch);
+            out, tchunk, stop, skipped, nch);
     } else {
-        raster_fwd_kernel<CP, false><<<n_tiles, ts * ts, 0, stream>>>(
+        raster_fwd_kernel<CP, false><<<n_tiles * tile_blocks(ts), block_threads(ts), 0, stream>>>(
             pdata, stride, cap, counts, ts, tw, alpha_threshold, max_alpha, eps,
-            out, nullptr, nullptr, nch);
+            out, nullptr, nullptr, skipped, nch);
     }
 }
 
@@ -283,7 +417,7 @@ void launch_probe(int cp, const float* pdata, int n_tiles, int cap, const int* c
     const int64_t stride = static_cast<int64_t>(n_tiles) * cap;
 #define MS_PROBE_CASE(C)                                                              \
     case C:                                                                           \
-        raster_probe_kernel<C, V><<<n_tiles, ts * ts, 0, stream>>>(                   \
+        raster_probe_kernel<C, V><<<n_tiles * tile_blocks(ts), block_threads(ts), 0, stream>>>(           \
             pdata, stride, cap, counts, ts, tw, alpha_threshold, max_alpha, eps, out, \
             chunk);                                                                   \
         break;
@@ -303,12 +437,15 @@ void launch_probe(int cp, const float* pdata, int n_tiles, int cap, const int* c
 // counts: (n_tiles,) int32 <= cap; out: (n_tiles, cp + 1, ts * ts) f32.
 // tchunk (n_tiles, ceil(cap / kResidChunk), ts * ts) f32 and stop
 // (n_tiles, ts * ts) int32 receive the backward's residual; both null for
-// a render that needs no gradient.
+// a render that needs no gradient. skipped (n_tiles, ceil(ts * ts / 32))
+// int32, or null, receives each warp's count of the slots the row test
+// skipped in the 32-slot groups it tested (a group is tested unless every
+// pixel of the warp stopped before it).
 extern "C" int raster_fwd_launch(const void* pdata, int rows, int n_tiles,
                                  int cap, const void* counts, int ts, int tw,
                                  float alpha_threshold, float max_alpha,
                                  float eps, void* out, void* tchunk,
-                                 void* stop, void* stream) {
+                                 void* stop, void* skipped, void* stream) {
     if (n_tiles <= 0) return 0;
     if (ts <= 0 || ts * ts > 1024) return static_cast<int>(cudaErrorInvalidValue);
     const auto* pd = static_cast<const float*>(pdata);
@@ -316,14 +453,15 @@ extern "C" int raster_fwd_launch(const void* pdata, int rows, int n_tiles,
     auto* o = static_cast<float*>(out);
     auto* tc = static_cast<float*>(tchunk);
     auto* st = static_cast<int*>(stop);
+    auto* sk = static_cast<int*>(skipped);
     if ((tc == nullptr) != (st == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     switch (rows - 6) {
-        case 4: launch<4>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
-        case 5: launch<5>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
-        case 6: launch<6>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
-        case 7: launch<7>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
-        case 8: launch<8>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, s); break;
+        case 4: launch<4>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, sk, s); break;
+        case 5: launch<5>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, sk, s); break;
+        case 6: launch<6>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, sk, s); break;
+        case 7: launch<7>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, sk, s); break;
+        case 8: launch<8>(pd, n_tiles, cap, ct, ts, tw, alpha_threshold, max_alpha, eps, o, tc, st, sk, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     MS_RETURN_LAUNCH_STATUS();

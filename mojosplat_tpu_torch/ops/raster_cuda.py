@@ -17,7 +17,9 @@ Port of ``mojosplat_tpu.ops.raster_pallas``:
     premultiplied channels, then the final transmittance. Differentiable
     with respect to ``pdata``: the forward is B1 (``csrc/raster_fwd.cu``),
     which then also writes the backward's residual, and the backward is B2
-    (``csrc/raster_bwd.cu``).
+    (``csrc/raster_bwd.cu``). Both skip the slots that no pixel of a warp's
+    pixel rows can keep; ``row_may_apply_plain`` mirrors that test, and
+    ``raster_tiles_skips`` reads B1's count of the slots it skipped.
 
 On CPU tensors every kernel runs its plain PyTorch version instead:
 ``raster_tiles_plain`` (the chunked-cumprod recurrence of the reference's
@@ -31,6 +33,8 @@ f32, which meets that route's looser tolerance too.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _kernels
@@ -42,6 +46,7 @@ from .segsum_cuda import segment_sum_cols
 _MIN_CHANNELS = 4  # rgb + one aux (depth or zero pad), as in the reference
 MAX_CHANNELS = 8  # the CUDA kernels' accumulator width
 RESID_CHUNK = 16  # slots per chunk of B1's residual (kResidChunk in csrc)
+B1_WARP_PIXELS = 64  # consecutive pixels of a tile a B1 warp owns (kWarpPix in csrc)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -234,6 +239,101 @@ def raster_tiles_bwd_plain(pdata, counts, gout, ts: int, tw: int,
     return d_pd.reshape(rows, n_tiles * cap)
 
 
+def row_may_apply_plain(pdata, n_tiles: int, ts: int, tw: int,
+                        config: RenderConfig) -> torch.Tensor:
+    """(n_tiles, ceil(ts * ts / W), cap) bool, W = ``B1_WARP_PIXELS``:
+    whether some pixel of B1's warp w (pixels [W w, W w + W) of the tile,
+    taken as the whole pixel rows they lie in) may keep slot k. False only
+    where none can.
+
+    The plain mirror of ``ms_row_may_apply`` (``csrc/common.cuh``), each f32
+    operation in the same order: along a row, sigma is convex in dx for
+    a > 0, so its minimum over the row's dx range (the closed form clamped
+    to it), less a margin of 1e-5 (1 + the terms' magnitude) for rounding,
+    bounds every pixel's sigma; opacity * exp(-bound) below the threshold
+    keeps no pixel. a <= 0, NaN and a threshold <= 0 may apply.
+    """
+    rows = pdata.shape[0]
+    cap = pdata.shape[1] // max(n_tiles, 1)
+    dev, f32 = pdata.device, torch.float32
+    pd = pdata.reshape(rows, n_tiles, cap)
+    P = ts * ts
+    W = B1_WARP_PIXELS
+    warps = torch.arange(-(-P // W), device=dev)
+    first = warps * W // ts
+    last = (torch.clamp(warps * W + W, max=P) - 1) // ts
+    r = torch.arange(ts, device=dev)
+    in_warp = (r[None, :] >= first[:, None]) & (r[None, :] <= last[:, None])  # (nw, ts)
+    thr = torch.tensor(config.alpha_threshold, dtype=f32, device=dev)
+    out = torch.ones((n_tiles, warps.shape[0], cap), dtype=torch.bool, device=dev)
+    if not config.alpha_threshold > 0:
+        return out
+    group = 64  # tiles at a time: (group, ts, cap) intermediates
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=dev)
+        ty, tx = tiles // tw, tiles % tw
+        x_first = ((tx * ts).to(f32) + 0.5)[:, None, None]
+        x_last = ((tx * ts + ts - 1).to(f32) + 0.5)[:, None, None]
+        py = ((ty[:, None] * ts + r[None, :]).to(f32) + 0.5)[..., None]  # (G, ts, 1)
+        mx, my, a, b, c, op = (pd[k, tiles][:, None, :] for k in range(6))  # (G, 1, cap)
+        dy = my - py
+        lo, hi = mx - x_last, mx - x_first
+        bdy = b * dy
+        t = -bdy / a
+        nan_t = torch.isnan(t)
+        t = torch.fmin(torch.fmax(t, lo), hi)
+        sigma = 0.5 * (a * t * t + c * dy * dy) + bdy * t
+        x = torch.fmax(lo.abs(), hi.abs())
+        mag = 0.5 * (a * x * x + c.abs() * dy * dy) + bdy.abs() * x
+        low = sigma - 1e-5 * (mag + 1.0)
+        may = ~(op * torch.exp(-low) < thr) | nan_t | ~(a > 0)  # (G, ts, cap)
+        out[g0 : g0 + tiles.shape[0]] = (may[:, None] & in_warp[None, :, :, None]).any(dim=2)
+    return out
+
+
+def skipped_pairs_plain(may, counts, stop) -> torch.Tensor:
+    """(n_tiles, n_warps) int32: B1's count of the (warp, slot) pairs its
+    row test skipped, from ``row_may_apply_plain``'s ``may`` and B1's
+    ``stop`` (n_tiles, ts * ts). A warp tests the slots below the count in
+    groups of 32, each unless all its pixels stopped before the group."""
+    n_tiles, nw, cap = may.shape
+    W = B1_WARP_PIXELS
+    st = torch.nn.functional.pad(stop.to(torch.int64), (0, nw * W - stop.shape[1]), value=-1)
+    wstop = st.reshape(n_tiles, nw, W).amax(dim=2)
+    slot = torch.arange(cap, device=may.device)
+    live = slot[None, :] < counts.clamp(0, cap)[:, None].to(torch.int64)  # (n_tiles, cap)
+    tested = live[:, None, :] & ((slot // 32 * 32)[None, None, :] <= wstop[..., None])
+    return (tested & ~may).sum(dim=2).to(torch.int32)
+
+
+def stop_plain(pdata, counts, ts: int, tw: int, config: RenderConfig) -> torch.Tensor:
+    """Plain version of B1's ``stop`` residual: (n_tiles, ts * ts) int32,
+    each pixel's first slot whose transmittance test ends its walk, or the
+    tile's count (clamped to cap)."""
+    rows = pdata.shape[0]
+    n_tiles = counts.shape[0]
+    cap = pdata.shape[1] // max(n_tiles, 1)
+    K, P, eps = config.chunk_size, ts * ts, config.transmittance_eps
+    pd = pdata.reshape(rows, n_tiles, cap)
+    out = torch.empty((n_tiles, P), dtype=torch.int32, device=pdata.device)
+    group = config.tile_batch or max(n_tiles, 1)
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=pdata.device)
+        G = tiles.shape[0]
+        T = torch.ones((G, P), dtype=torch.float32, device=pdata.device)
+        done = torch.zeros((G, P), dtype=torch.bool, device=pdata.device)
+        stop = counts[tiles].clamp(0, cap).to(torch.int64)[:, None].expand(G, P)
+        for k0 in range(0, cap, K):
+            _, alpha, *_ = _geometry(tiles, pd, k0, K, counts, ts, tw, config)
+            T_after = T[..., None] * torch.cumprod(1.0 - alpha, dim=-1)
+            hit = (T_after <= eps) & ~done[..., None]
+            stop = torch.where(hit.any(dim=-1), k0 + hit.to(torch.int8).argmax(dim=-1), stop)
+            *_, trans, done = _chunk_transmittance(T, done, alpha, eps)
+            T = T * trans
+        out[g0 : g0 + G] = stop.to(torch.int32)
+    return out
+
+
 def check_tiles(pdata, counts, ts: int) -> int:
     """Validate the tile blend kernels' common inputs; returns cap."""
     _kernels.require(pdata, "pdata", torch.float32, 2)
@@ -260,6 +360,17 @@ def _check_blend_args(pdata, counts, ts: int) -> int:
     return cap
 
 
+def _launch_fwd(pdata, counts, ts, tw, config, out, tchunk, stop, skipped) -> None:
+    """Launch B1 on checked CUDA tensors; tchunk/stop (the residual) and
+    skipped (the row test's count) may be None."""
+    _kernels.launch(
+        "raster_fwd_launch", pdata.device, pdata.data_ptr(), pdata.shape[0],
+        counts.shape[0], pdata.shape[1] // counts.shape[0], counts.data_ptr(), ts, tw,
+        config.alpha_threshold, config.max_alpha, config.transmittance_eps, out.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (tchunk, stop, skipped)),
+    )
+
+
 def raster_tiles_fwd(pdata, counts, ts: int, tw: int, config: RenderConfig,
                      residual: bool):
     """(out, residual): B1 on a CUDA tensor, the plain version on a CPU
@@ -280,14 +391,33 @@ def raster_tiles_fwd(pdata, counts, ts: int, tw: int, config: RenderConfig,
             torch.empty((n_tiles, nch, P), dtype=torch.float32, device=pdata.device),
             torch.empty((n_tiles, P), dtype=torch.int32, device=pdata.device),
         )
-    _kernels.launch(
-        "raster_fwd_launch", pdata.device, pdata.data_ptr(), rows, n_tiles, cap,
-        counts.data_ptr(), ts, tw, config.alpha_threshold, config.max_alpha,
-        config.transmittance_eps, out.data_ptr(),
-        resid[0].data_ptr() if resid else None, resid[1].data_ptr() if resid else None,
-    )
+    _launch_fwd(pdata, counts, ts, tw, config, out, *(resid or (None, None)), None)
     raster_tiles.launches += 1
     return out, resid
+
+
+def raster_tiles_skips(pdata, counts, ts: int, tw: int, config: RenderConfig):
+    """(skipped, stop): each B1 warp's count of the (warp, slot) pairs its
+    row test skipped, (n_tiles, ceil(ts * ts / B1_WARP_PIXELS)) int32, and B1's stop
+    residual (n_tiles, ts * ts). On a CUDA tensor B1 runs with its residual
+    and writes the count (a launch in ``raster_tiles.launches``); on a CPU
+    tensor ``skipped_pairs_plain`` counts over ``row_may_apply_plain`` and
+    ``stop_plain``."""
+    n_tiles = counts.shape[0]
+    if pdata.device.type == "cpu":
+        stop = stop_plain(pdata, counts, ts, tw, config)
+        may = row_may_apply_plain(pdata, n_tiles, ts, tw, config)
+        return skipped_pairs_plain(may, counts, stop), stop
+    cap = _check_blend_args(pdata, counts, ts)
+    rows, P = pdata.shape[0], ts * ts
+    dev = pdata.device
+    out = torch.empty((n_tiles, rows - 5, P), dtype=torch.float32, device=dev)
+    tchunk = torch.empty((n_tiles, -(-cap // RESID_CHUNK), P), dtype=torch.float32, device=dev)
+    stop = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
+    skipped = torch.empty((n_tiles, -(-P // B1_WARP_PIXELS)), dtype=torch.int32, device=dev)
+    _launch_fwd(pdata, counts, ts, tw, config, out, tchunk, stop, skipped)
+    raster_tiles.launches += 1
+    return skipped, stop
 
 
 def raster_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
@@ -319,6 +449,20 @@ def raster_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
     )
     raster_tiles_bwd.launches += 1
     return d_pdata
+
+
+def raster_bwd_shape(cp: int, ts: int) -> dict:
+    """B2's launch shape for cp channels and ts x ts tiles, from the CUDA
+    runtime (builds the kernels): registers and local (spill) bytes a
+    thread, static shared bytes and threads a block, the cluster width,
+    resident blocks per SM and resident clusters on the card."""
+    out = (ctypes.c_int * 7)()
+    code = _kernels.library().raster_bwd_info(cp, ts, ctypes.cast(out, ctypes.c_void_p))
+    if code != 0:
+        raise RuntimeError(f"raster_bwd_info failed with error {code}")
+    keys = ("registers", "shared_bytes", "local_bytes", "threads", "cluster",
+            "blocks_per_sm", "clusters")
+    return dict(zip(keys, list(out)))
 
 
 class _RasterTiles(torch.autograd.Function):

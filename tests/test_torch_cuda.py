@@ -19,7 +19,11 @@ rule and its backward B8 to B2's, and B8 is bitwise equal to itself.
 The probe's variants (B9) are held to B1's rule, blend1 and blend3 with a
 share of 0.5% (a weight's bf16 rounding turns an f32 ulp into 2^-8 of the
 product), blend and memonly within 1e-6 of the row's scale; its full
-variant is bit-equal to B1. With tight_cull, the "cuda" route bins
+variant is bit-equal to B1. B1's count of the (warp, slot) pairs its
+row test skipped equals the plain mirror's count from B1's own stop
+indices, and its output and residual are the same with the count
+written; B2 runs in clusters of 4 blocks of 256 threads with no spill.
+With tight_cull, the "cuda" route bins
 exactly as the "torch" route (ids and counters) and renders by B1's rule;
 the absgrad and view-space sinks' gradients of the two routes agree by
 B2's rule.
@@ -33,7 +37,9 @@ from mojosplat_tpu_torch import Camera, RenderConfig, render_gaussians
 from mojosplat_tpu_torch.ops.expand_cuda import (
     segment_expand_offsets, segment_expand_offsets_plain)
 from mojosplat_tpu_torch.ops.raster_cuda import (
-    gather_tile_data, raster_tiles, raster_tiles_bwd_plain, raster_tiles_plain)
+    gather_tile_data, raster_bwd_shape, raster_tiles, raster_tiles_bwd_plain,
+    raster_tiles_fwd, raster_tiles_plain, raster_tiles_skips, row_may_apply_plain,
+    skipped_pairs_plain)
 from mojosplat_tpu_torch.ops.raster_probe import VARIANTS, raster_variant, raster_variant_plain
 from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
 from mojosplat_tpu_torch.ops.slice_cuda import (
@@ -152,6 +158,76 @@ def test_blend_bwd_kernel_matches_plain(dev, ts, cp):
     d = got.reshape(6 + cp, n_tiles, cap)
     assert torch.all(d[:, 0] == 0) and torch.all(d[:, 1, 1:] == 0)  # nothing past a count
     assert torch.equal(kernel_grad(), got)  # no atomics: bitwise reproducible
+
+
+def _edge_pdata(rng, n_tiles, tw, ts, cap, cp):
+    """_pdata with the row test's edge cases mixed in: a <= 0, indefinite
+    conics, opacities at the threshold on a pixel centre, slots far off
+    the tile."""
+    pd = _pdata(rng, n_tiles, tw, ts, cap, cp)
+    k = np.arange(n_tiles * cap) % 9
+    tile = np.repeat(np.arange(n_tiles), cap)
+    pd[2, k == 1] = -0.2
+    pd[3, k == 2] = np.sqrt(pd[2, k == 2] * pd[4, k == 2]) * 1.5
+    sel = k == 3
+    pd[5, sel] = np.float32(1.0 / 255.0)
+    pd[0, sel] = (tile[sel] % tw) * ts + 3.5
+    pd[1, sel] = (tile[sel] // tw) * ts + 1.5
+    pd[0, k == 4] += 60.0
+    return pd
+
+
+@pytest.mark.parametrize("ts,cp", [(32, 4), (16, 6), (8, 5), (32, 8)])
+def test_blend_skip_count_matches_mirror(dev, ts, cp):
+    rng = np.random.default_rng(ts * 7 + cp)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(_edge_pdata(rng, n_tiles, tw, ts, cap, cp)).to(dev)
+    counts = torch.tensor([0, 1, 2, 31, 255, 256, 257, 300, 400, 511, 512, 600],
+                          dtype=torch.int32, device=dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap)
+    skipped, stop = raster_tiles_skips(pdata, counts, ts, tw, cfg)
+    out, (_, stop_r) = raster_tiles_fwd(pdata, counts, ts, tw, cfg, residual=True)
+    torch.cuda.synchronize()
+    assert torch.equal(stop, stop_r)
+    assert torch.equal(out, raster_tiles(pdata, counts, ts, tw, cfg))
+    may = row_may_apply_plain(pdata, n_tiles, ts, tw, cfg)
+    want = skipped_pairs_plain(may, counts, stop)
+    assert torch.equal(skipped, want), (int(skipped.sum()), int(want.sum()))
+    assert int(skipped.sum()) > 0
+
+
+@pytest.mark.parametrize("ts,cp", [(32, 4), (16, 8)])
+def test_blend_bwd_kernel_edge_slots(dev, ts, cp):
+    rng = np.random.default_rng(ts + cp + 3)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(_edge_pdata(rng, n_tiles, tw, ts, cap, cp)).to(dev)
+    counts = torch.tensor([0, 1, 2, 31, 255, 256, 257, 300, 400, 511, 512, 600],
+                          dtype=torch.int32, device=dev)
+    gout = torch.from_numpy(rng.normal(size=(n_tiles, cp + 1, ts * ts)).astype(np.float32)).to(dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, tile_batch=4)
+
+    def kernel_grad():
+        pd = pdata.clone().requires_grad_(True)
+        raster_tiles(pd, counts, ts, tw, cfg).backward(gout)
+        return pd.grad
+
+    got = kernel_grad()
+    want = raster_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    # Where a <= 0 or the conic is indefinite, exp(-sigma) overflows at far
+    # pixels and the plain version's 0 * inf is NaN; compare the rest.
+    fin = torch.isfinite(want).all(dim=0)
+    assert float(fin.float().mean()) > 0.7
+    got, want = got[:, fin], want[:, fin]
+    scale = want.abs().amax(dim=1, keepdim=True) + 1e-12
+    rel = (got - want).abs() / scale
+    assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel()
+    assert float(rel.max()) <= 1e-3
+    assert torch.equal(kernel_grad()[:, fin], got)
+    shape = raster_bwd_shape(cp, ts)
+    assert shape["cluster"] == 4, shape
+    assert shape["threads"] == (256 if ts == 32 else 64) and shape["blocks_per_sm"] >= 2, shape
 
 
 def test_segment_sum_kernel_matches_plain(dev):
