@@ -19,21 +19,23 @@ exits nonzero without printing the final result line:
      (rtol 5e-5, atol 5e-6).
   4. Kernels: at the trained scene's own shapes (inputs from one "torch"
      route binning), each kernel against its plain PyTorch version on the
-     card: B4 and B5 exactly equal; B1 within 1e-5 on at least 99.99% of
-     pixel-channels and within 5e-3 everywhere, and bit-equal with and
-     without its backward residual; B2 (with a seeded output cotangent)
-     within 1e-4 of each gradient row's scale on at least 99.999% of values
-     and within 1e-3 of it everywhere; B3 on the route's real sorted keys
-     (the slot ids, dropped past each tile's count) within rtol 1e-5 of
-     index_add_. B2 and B3 must be bitwise equal
-     across two runs. B1's row test: the kernel's count of skipped
-     (warp, slot) pairs equal to the plain mirror's, no skipped pair that
-     a pixel keeps (brute force), and the shares of pairs no pixel keeps;
-     B1's and B2's ptxas lines and B2's launch shape (cluster, threads,
-     blocks per SM). Times each with CUDA events (median of 20 runs after
-     3 warm-ups; 3 runs after 1 for B2's plain version), the least time
-     the card could take (bound), and one PyTorch call computing the same
-     function where there is one (library).
+     card: B4 (on every capacity column) and B5 exactly equal; B1 within
+     1e-5 on at least 99.99% of pixel-channels and within 5e-3 everywhere,
+     and bit-equal with and without its backward residual; B2 (with a seeded
+     output cotangent) within 1e-4 of each gradient row's scale on at least
+     99.999% of values and within 1e-3 of it everywhere; B3 on the route's
+     real sorted keys (the slot ids, dropped past each tile's count) within
+     rtol 1e-5 of index_add_. B2 and B3 must be bitwise equal across two
+     runs. B1's row test: the kernel's count of skipped (warp, slot) pairs
+     equal to the plain mirror's, no skipped pair that a pixel keeps (brute
+     force), and the shares of pairs no pixel keeps; B1's and B2's ptxas
+     lines and B2's launch shape (cluster, threads, blocks per SM). Times
+     each with CUDA events (median of 20 runs after 3 warm-ups; 3 runs after
+     1 for B2's plain version), the least time the card could take (bound),
+     and one PyTorch call computing the same function where there is one
+     (library); B4 and its library call also per call over 20 calls queued
+     back to back (the device's time once the host's launch path overlaps
+     it).
   5. Render: the trained 1M-gaussian scene (assets/trained_scene_1m.npz)
      at 1920x1080 with bench.py's preset 6 budgets (tile_size 32,
      max_tile_span 4, 8x intersection capacity, tile_capacity 512,
@@ -66,8 +68,9 @@ exits nonzero without printing the final result line:
      rule (the depth moments relative to their row's largest value) and
      bit-equal with and without the residual; B8 (the maps' variant, which
      training runs) against its plain version by the B2 rule with a seeded
-     cotangent, bitwise equal across two runs. Times as in phase 4 (the
-     plain versions 3 runs after 1).
+     cotangent, bitwise equal across two runs; B8's ptxas line and launch
+     shape (cluster, threads, registers, shared memory, spills). Times as
+     in phase 4 (the plain versions 3 runs after 1).
  10. 2DGS render: the disks at 1920x1080 with the same budgets under
      no_grad on the "cuda" route, with the maps (B7, B4 and B5 launched,
      no backward kernel, no residual) and without (B6); drop counters equal
@@ -234,6 +237,24 @@ def cuda_ms(fn, runs: int, warmup: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_queued(fn, runs: int, warmup: int) -> float:
+    """Milliseconds per call of ``fn()`` over ``runs`` calls queued back to
+    back between two CUDA events, after ``warmup`` untimed calls: the
+    device's time per call once the host's launch path overlaps the
+    previous call (cuda_ms also counts the device waiting for the launch)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
@@ -424,7 +445,7 @@ def check_bitwise(grads_of, name: str) -> None:
 def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> None:
     """Phases 8-11: the 2DGS surfel path. Appends B6, B7 and B8 to
     ``kernels`` and gives B3, B4 and B5 their launches in a 2DGS step."""
-    from mojosplat_tpu_torch import RenderConfig
+    from mojosplat_tpu_torch import RenderConfig, _kernels
     from mojosplat_tpu_torch.convert import params_from_numpy
     from mojosplat_tpu_torch.ops.binning import num_tiles
     from mojosplat_tpu_torch.ops.expand_cuda import segment_expand_offsets
@@ -434,7 +455,7 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
     from mojosplat_tpu_torch.ops.slice_cuda import segment_slice_gather
     from mojosplat_tpu_torch.ops.surfel_cuda import (
         raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_bwd_plain,
-        raster_surfel_tiles_fwd, raster_surfel_tiles_plain)
+        raster_surfel_tiles_fwd, raster_surfel_tiles_plain, surfel_bwd_shape)
     from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles, render_surfels
     from mojosplat_tpu_torch.train import (
         activate, make_optimizer, surfel_loss, train_step_surfel)
@@ -545,8 +566,17 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
                          + n_tiles + d_pdata.numel()), B8_OPS_PER_PAIR * pairs, 2 * pairs),
             library_ms=None,
         ))
+        shape = surfel_bwd_shape(True, ts)
+        kernels[-1]["shape"] = shape
+        for name, regs, spills, smem in ptxas_report(_kernels.build()[1]):
+            if "surfel_bwd_kernel" in name:
+                phase("B8", f"ptxas {name}: {regs} registers, {smem} bytes smem, {spills}")
         phase("B8", f"d pdata {tuple(d_pdata.shape)} from a seeded gout; two runs bitwise "
-              f"equal")
+              f"equal; launch shape: clusters of {shape['cluster']} blocks of "
+              f"{shape['threads']} threads per tile, {shape['registers']} registers, "
+              f"{shape['local_bytes']} local bytes a thread, {shape['shared_bytes']} shared "
+              f"bytes a block, {shape['blocks_per_sm']} blocks per SM, {shape['clusters']} "
+              f"clusters resident")
         for k in kernels[-3:]:
             phase("time", f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
                   f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library none")
@@ -1049,23 +1079,27 @@ def main() -> int:
         # B4: (F, N) int32 read once, (F, capacity) int32 written once.
         got = segment_expand_offsets(pre.fields, capacity)
         want = segment_expand_offsets_plain(pre.fields, capacity)
-        live = min(total, capacity)
-        if not torch.equal(got[:, :live], want[:, :live]):
-            raise AssertionError("B4: kernel and plain version differ on slots < total")
+        if not torch.equal(got, want):
+            raise AssertionError("B4: kernel and plain version differ")
         repeats = torch.diff(pre.fields[0], append=pre.total.reshape(1))
         kernels.append(dict(
             name="B4 segment_expand_offsets", route="cuda",
             source="mojosplat_tpu_torch/csrc/expand.cu",
             replaces="mojosplat_tpu/ops/expand_pallas.py:143",
-            max_abs_err=float((got[:, :live] - want[:, :live]).abs().max()) if live else 0.0,
+            max_abs_err=float((got - want).abs().max()),
             ms=cuda_ms(lambda: segment_expand_offsets(pre.fields, capacity), 20, 3),
+            ms_queued=cuda_ms_queued(lambda: segment_expand_offsets(pre.fields, capacity), 20, 3),
             plain_ms=cuda_ms(lambda: segment_expand_offsets_plain(pre.fields, capacity), 20, 3),
             **bound(4 * (pre.fields.numel() + pre.fields.shape[0] * capacity), 0),
             library_ms=cuda_ms(lambda: torch.repeat_interleave(
                 pre.fields, repeats, dim=1, output_size=total), 20, 3),
+            library_ms_queued=cuda_ms_queued(lambda: torch.repeat_interleave(
+                pre.fields, repeats, dim=1, output_size=total), 20, 3),
         ))
         phase("B4", f"{pre.fields.shape[1]} gaussians -> {capacity} slots "
-              f"({total} demanded): exact on slots < total")
+              f"({total} demanded): exact on every column; 20 calls queued back to back: "
+              f"{kernels[-1]['ms_queued']:.4f} ms a call, repeat_interleave "
+              f"{kernels[-1]['library_ms_queued']:.4f}")
 
         # B5: starts, the distinct list entries the tiles' windows cover,
         # and the (n_tiles * cap,) table.

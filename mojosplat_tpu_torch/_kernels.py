@@ -44,8 +44,9 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> argument types of the C entry point (pointers, ints, floats, and
 # the stream last); every entry point returns an int error code. A null
-# pointer is passed as None. raster_bwd_info launches nothing and takes no
-# stream: it reports B2's launch shape into a host int array.
+# pointer is passed as None. raster_bwd_info and surfel_bwd_info launch
+# nothing and take no stream: they report B2's and B8's launch shapes into a
+# host int array (``launch_shape``).
 _SIGNATURES = {
     "expand_offsets_launch": (_P, _I, _I, _P, _I, _P),
     "slice_gather_launch": (_P, _I, _P, _I, _I, _P, _P),
@@ -56,7 +57,10 @@ _SIGNATURES = {
     "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
     "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
     "surfel_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "surfel_bwd_info": (_I, _I, _P),
 }
+SHAPE_KEYS = ("registers", "shared_bytes", "local_bytes", "threads", "cluster",
+              "blocks_per_sm", "clusters")
 
 
 def sources() -> list[Path]:
@@ -147,6 +151,18 @@ def launch(name: str, device: torch.device, *args) -> None:
         code = getattr(library(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def launch_shape(name: str, *args: int) -> dict:
+    """A cluster kernel's launch shape from the CUDA runtime, by the info
+    entry point ``name`` (builds the kernels): registers and local (spill)
+    bytes a thread, static shared bytes and threads a block, the cluster
+    width, resident blocks per SM and resident clusters on the card."""
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    code = getattr(library(), name)(*args, ctypes.cast(out, ctypes.c_void_p))
+    if code != 0:
+        raise RuntimeError(f"{name} failed with error {code}")
+    return dict(zip(SHAPE_KEYS, list(out)))
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -66,6 +66,66 @@ __device__ __forceinline__ void ms_load_record(const float* records, int j,
     }
 }
 
+// Rows of the warp transpose below.
+constexpr int kTransposeRows = 16;
+
+// One step of the warp transpose: a lane keeps rows [0, H) or [H, 2H) of
+// its first 2H values (by lane bit 2H) and adds its partner's copy of them.
+// H is a template parameter so every index is a constant and x stays in
+// registers. The empty asm makes both values opaque: otherwise the compiler
+// folds the selects into a load from a selected address of x, which moves x
+// to local memory.
+template <int H>
+__device__ __forceinline__ void ms_transpose_step(float (&x)[kTransposeRows], int lane) {
+    const bool up = (lane & (2 * H)) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+        float lo = x[i];
+        float hi = x[i + H];
+        asm("" : "+f"(lo), "+f"(hi));
+        x[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, 2 * H);
+    }
+}
+
+// Sum x (16 values a lane) over the warp by a transpose (reduce-scatter):
+// row r's sum lands in lanes 2r and 2r + 1, after 8 + 4 + 2 + 1 + 1 = 16
+// shuffles, where a butterfly per row would take 80. The blend backwards
+// (B2, B8) reduce each slot's gradient rows with it.
+__device__ __forceinline__ float ms_warp_transpose_sum(float (&x)[kTransposeRows], int lane) {
+    ms_transpose_step<8>(x, lane);
+    ms_transpose_step<4>(x, lane);
+    ms_transpose_step<2>(x, lane);
+    ms_transpose_step<1>(x, lane);
+    return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 1);
+}
+
+// The launch shape of a cluster kernel with threads-thread blocks, as the
+// runtime sees it: out[0..6] = registers a thread, static shared bytes,
+// local (spill) bytes a thread, threads a block, the cluster width,
+// resident blocks per SM, and resident clusters on the card (for a grid of
+// 1024 clusters).
+static inline int ms_cluster_shape(const void* fn, int threads, int cluster, int* out) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0, clusters = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(cluster * 1024);
+    config.blockDim = dim3(threads);
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &config);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = threads;
+    out[4] = attr.requiredClusterWidth;
+    out[5] = blocks;
+    out[6] = clusters;
+    return 0;
+}
+
 // Transmittance after a slot of opacity alpha is applied: T * (1 - alpha).
 __device__ __forceinline__ float ms_transmit(float T, float alpha) {
     return __fmul_rn(T, __fsub_rn(1.0f, alpha));

@@ -72,37 +72,9 @@ namespace {
 constexpr int K = kResidChunk;
 constexpr int kSplit = 4;    // blocks per tile: one cluster
 constexpr int kMaxWarps = 8;  // 1024 pixels over kSplit blocks
-constexpr int kPad = 16;      // rows of the warp transpose
+constexpr int kPad = kTransposeRows;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(K <= 32 && kPad == 16, "the walk and the transpose assume these");
-
-// One step of the warp transpose: a lane keeps rows [0, H) or [H, 2H) of
-// its first 2H values (by lane bit 2H) and adds its partner's copy of them.
-// H is a template parameter so every index is a constant and x stays in
-// registers. The empty asm makes both values opaque: otherwise the compiler
-// folds the selects into a load from a selected address of x, which moves x
-// to local memory.
-template <int H>
-__device__ __forceinline__ void transpose_step(float (&x)[kPad], int lane) {
-    const bool up = (lane & (2 * H)) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-        float lo = x[i];
-        float hi = x[i + H];
-        asm("" : "+f"(lo), "+f"(hi));
-        x[i] = (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, 2 * H);
-    }
-}
-
-// Sum x (kPad values a lane) over the warp: row r's sum lands in lanes 2r
-// and 2r + 1, after 8 + 4 + 2 + 1 + 1 = 16 shuffles.
-__device__ __forceinline__ float warp_transpose_sum(float (&x)[kPad], int lane) {
-    transpose_step<8>(x, lane);
-    transpose_step<4>(x, lane);
-    transpose_step<2>(x, lane);
-    transpose_step<1>(x, lane);
-    return x[0] + __shfl_xor_sync(kFull, x[0], 1);
-}
 
 template <int CP>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(256, 4)
@@ -291,7 +263,7 @@ raster_bwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
 #pragma unroll
                     for (int r = 0; r < kPad; ++r) d[r] = 0.0f;
                     adjoint(j, d);
-                    sum = warp_transpose_sum(d, lane);
+                    sum = ms_warp_transpose_sum(d, lane);
                 }
                 if ((lane & 1) == 0 && (lane >> 1) < kRows) part[warp][j][lane >> 1] = sum;
             }
@@ -389,25 +361,5 @@ extern "C" int raster_bwd_info(int cp, int ts, void* out) {
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     if (ts <= 0 || ts * ts > 1024) return static_cast<int>(cudaErrorInvalidValue);
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads = block_threads(ts);
-    int blocks = 0, clusters = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(kSplit * 1024);
-    config.blockDim = dim3(threads);
-    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &config);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int* o = static_cast<int*>(out);
-    o[0] = attr.numRegs;
-    o[1] = static_cast<int>(attr.sharedSizeBytes);
-    o[2] = static_cast<int>(attr.localSizeBytes);
-    o[3] = threads;
-    o[4] = attr.requiredClusterWidth;
-    o[5] = blocks;
-    o[6] = clusters;
-    return 0;
+    return ms_cluster_shape(fn, block_threads(ts), kSplit, static_cast<int*>(out));
 }

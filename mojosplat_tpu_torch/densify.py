@@ -72,7 +72,9 @@ class DensifyState(NamedTuple):
     count: torch.Tensor  # (N,) int32 accumulation steps seen
 
     @staticmethod
-    def zero(n: int, device: torch.device | str = "cpu") -> "DensifyState":
+    def zero(n: int, device: torch.device | str = "cuda") -> "DensifyState":
+        """Zero statistics for ``n`` slots, on the card unless ``device``
+        says otherwise."""
         return DensifyState(
             grad_accum=torch.zeros((n,), dtype=torch.float32, device=device),
             count=torch.zeros((n,), dtype=torch.int32, device=device),

@@ -33,8 +33,6 @@ f32, which meets that route's looser tolerance too.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _kernels
@@ -452,17 +450,9 @@ def raster_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
 
 
 def raster_bwd_shape(cp: int, ts: int) -> dict:
-    """B2's launch shape for cp channels and ts x ts tiles, from the CUDA
-    runtime (builds the kernels): registers and local (spill) bytes a
-    thread, static shared bytes and threads a block, the cluster width,
-    resident blocks per SM and resident clusters on the card."""
-    out = (ctypes.c_int * 7)()
-    code = _kernels.library().raster_bwd_info(cp, ts, ctypes.cast(out, ctypes.c_void_p))
-    if code != 0:
-        raise RuntimeError(f"raster_bwd_info failed with error {code}")
-    keys = ("registers", "shared_bytes", "local_bytes", "threads", "cluster",
-            "blocks_per_sm", "clusters")
-    return dict(zip(keys, list(out)))
+    """B2's launch shape for cp channels and ts x ts tiles
+    (``_kernels.launch_shape``)."""
+    return _kernels.launch_shape("raster_bwd_info", cp, ts)
 
 
 class _RasterTiles(torch.autograd.Function):

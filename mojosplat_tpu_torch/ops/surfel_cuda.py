@@ -351,6 +351,12 @@ def raster_surfel_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
     return d_pdata
 
 
+def surfel_bwd_shape(aux: bool, ts: int) -> dict:
+    """B8's launch shape without or with the maps (``aux``) for ts x ts
+    tiles (``_kernels.launch_shape``)."""
+    return _kernels.launch_shape("surfel_bwd_info", int(aux), ts)
+
+
 class _RasterSurfelTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pdata, counts, ts, tw, config, aux):

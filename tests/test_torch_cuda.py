@@ -15,7 +15,10 @@ values and within 1e-3 scale_r everywhere (the f32 sums over pixels run in
 other orders; a flip would move one pixel's share of a slot's sum). B3 agrees with index_add_ within rtol 1e-5
 (another order of f32 adds) and is bitwise equal to itself, as are the
 gradients of the packed gather. The surfel blend B6/B7 is held to B1's
-rule and its backward B8 to B2's, and B8 is bitwise equal to itself.
+rule and its backward B8 to B2's, and B8 is bitwise equal to itself, also
+on edge slots (failed solves, the s2 clamp, opacities at the threshold,
+unapplied chunks, early stops) and runs in clusters of 4 blocks with no
+local memory. B4 is held on every capacity column.
 The probe's variants (B9) are held to B1's rule, blend1 and blend3 with a
 share of 0.5% (a weight's bf16 rounding turns an f32 ulp into 2^-8 of the
 product), blend and memonly within 1e-6 of the row's scale; its full
@@ -46,7 +49,7 @@ from mojosplat_tpu_torch.ops.slice_cuda import (
     segment_slice_gather, segment_slice_gather_plain)
 from mojosplat_tpu_torch.ops.surfel_cuda import (
     primed_surfel_columns, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
-    raster_surfel_tiles_plain)
+    raster_surfel_tiles_fwd, raster_surfel_tiles_plain, surfel_bwd_shape)
 from mojosplat_tpu_torch.surfel import oriented_normal_columns, surfel_alpha_columns
 
 pytestmark = pytest.mark.cuda
@@ -59,18 +62,37 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _expand_fields(rng, counts):
+    """(5, N) int32 fields: the exclusive prefix sum of ``counts``, then four
+    rows of random payload."""
+    offsets = np.cumsum(counts) - counts
+    rows = [offsets] + [rng.integers(-5, 1 << 30, counts.size) for _ in range(4)]
+    return np.stack(rows).astype(np.int32).reshape(5, counts.size)
+
+
 def test_expand_kernel_exact(dev):
     rng = np.random.default_rng(0)
     n = 5000
     counts = rng.integers(0, 12, n).astype(np.int32)
     counts[rng.random(n) < 0.3] = 0
     counts[-100:] = 0
-    offsets = np.cumsum(counts) - counts
-    fields = np.stack([offsets] + [rng.integers(-5, 1 << 30, n) for _ in range(4)])
-    fields = torch.from_numpy(fields.astype(np.int32)).to(dev)
-    for capacity in (1, int(counts.sum()), int(counts.sum()) + 999):
-        got = segment_expand_offsets(fields, capacity)
-        assert torch.equal(got, segment_expand_offsets_plain(fields, capacity))
+    # The binning path's order: the zero-count gaussians last.
+    presorted = np.concatenate([counts[counts > 0], np.zeros(1000, np.int32)])
+    # A run of zero-count gaussians longer than a block's owner staging buffer
+    # (2048 offsets), between two runs of counts; and one gaussian alone.
+    gap = np.concatenate([rng.integers(1, 12, 3000), np.zeros(6000, np.int64),
+                          rng.integers(1, 12, 3000)]).astype(np.int32)
+    block = 2048  # slots a block of the kernel writes
+    for cts in (counts, presorted, gap, np.array([7], np.int32), np.zeros(0, np.int32)):
+        fields = torch.from_numpy(_expand_fields(rng, cts)).to(dev)
+        total = int(cts.sum())
+        # On and off block boundaries, total below, at and above the capacity.
+        for capacity in sorted({1, 7, block - 1, block, block + 1, 3 * block, max(total, 1),
+                                total // 2 + 1, total + 1, total + 999,
+                                (total // block + 2) * block}):
+            got = segment_expand_offsets(fields, capacity)
+            assert torch.equal(got, segment_expand_offsets_plain(fields, capacity)), (
+                cts.size, total, capacity)
     with pytest.raises(ValueError):
         segment_expand_offsets(fields.float(), 10)
 
@@ -344,6 +366,67 @@ def test_surfel_kernels_match_plain(dev, ts, aux):
     d = d_got.reshape(pdata.shape[0], n_tiles, cap)
     assert torch.all(d[:, 0] == 0) and torch.all(d[:, 1, 1:] == 0)  # nothing past a count
     assert torch.equal(kernel_grad(), d_got)
+
+
+def surfel_edge_pdata(rng, n_tiles, tw, ts, cap, aux):
+    """surfel_pdata with B8's edge cases mixed in (slot index k mod 7):
+    failed solves (the two disk axes equal, so det A = 0 at every pixel),
+    disks shrunk 1000x (s2 clamps at 1e4 away from their centre), and
+    opacities at the alpha threshold with the projected centre on a pixel
+    centre (alpha exactly 1/255 there); no slot of chunk 3 of tile 11 is
+    applied (opacity 0), and tile 10's disks cover it at opacity 0.97, so
+    its pixels stop within the first chunks."""
+    pd = surfel_pdata(rng, n_tiles, tw, ts, cap, aux)
+    k = np.arange(n_tiles * cap) % 7
+    tile = np.repeat(np.arange(n_tiles), cap)
+    slot = np.arange(n_tiles * cap) % cap
+    pd[6:9, k == 1] = pd[3:6, k == 1]
+    pd[3:9, k == 2] *= np.float32(1e-3)
+    sel = k == 3
+    pd[11, sel] = np.float32(1.0 / 255.0)
+    pd[9, sel] = (tile[sel] % tw) * ts + 3.5
+    pd[10, sel] = (tile[sel] // tw) * ts + 1.5
+    pd[11, (tile == 11) & (slot // 16 == 3)] = 0.0
+    big = tile == 10
+    pd[3:9, big] *= np.float32(100.0)
+    pd[11, big] = np.float32(0.97)
+    return pd
+
+
+@pytest.mark.parametrize("ts,aux", [(8, False), (16, False), (32, False), (8, True),
+                                    (16, True), (32, True)])
+def test_surfel_bwd_kernel_edge_slots(dev, ts, aux):
+    rng = np.random.default_rng(ts * 3 + aux + 5)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(surfel_edge_pdata(rng, n_tiles, tw, ts, cap, aux)).to(dev)
+    counts = torch.tensor([0, 1, 15, 16, 17, 31, 255, 256, 257, 511, 512, 600],
+                          dtype=torch.int32, device=dev)
+    oc = 9 if aux else 5
+    gout = torch.from_numpy(rng.normal(size=(n_tiles, oc, ts * ts)).astype(np.float32)).to(dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, tile_batch=4)
+
+    def kernel_grad():
+        pd = pdata.clone().requires_grad_(True)
+        raster_surfel_tiles(pd, counts, ts, tw, cfg, aux).backward(gout)
+        return pd.grad
+
+    _, (_, stop) = raster_surfel_tiles_fwd(pdata, counts, ts, tw, cfg, aux, True)
+    got = kernel_grad()
+    want = raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg, aux)
+    torch.cuda.synchronize()
+    assert int(stop[10].max()) < 64  # tile 10 stops early
+    assert got.shape == pdata.shape and bool(torch.isfinite(got).all())
+    rel = (got - want).abs() / (want.abs().amax(dim=1, keepdim=True) + 1e-12)
+    assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel()
+    assert float(rel.max()) <= 1e-3
+    d = got.reshape(pdata.shape[0], n_tiles, cap)
+    assert torch.all(d[:, 0] == 0) and torch.all(d[:, 1, 1:] == 0)  # nothing past a count
+    assert torch.all(d[:, 11, 48:64] == 0)  # the chunk no pixel applies
+    assert torch.equal(kernel_grad(), got)
+    shape = surfel_bwd_shape(aux, ts)
+    assert shape["cluster"] == 4, shape
+    assert shape["threads"] == {8: 32, 16: 64, 32: 256}[ts], shape
+    assert shape["blocks_per_sm"] >= 3 and shape["local_bytes"] == 0, shape
 
 
 def test_surfel_kernels_reject_what_they_do_not_take(dev):

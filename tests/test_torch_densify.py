@@ -112,7 +112,7 @@ def test_adc_functions_match_jax(monkeypatch):
     assert torch.equal(tdensify.alive_mask(tp), torch.from_numpy(np.array(
         jdensify.alive_mask(jp))))
     # accumulate_stats, twice
-    js, ts = jdensify.DensifyState.zero(64), tdensify.DensifyState.zero(64)
+    js, ts = jdensify.DensifyState.zero(64), tdensify.DensifyState.zero(64, device="cpu")
     for _ in range(2):
         js = jdensify.accumulate_stats(js, jnp.asarray(grads), jnp.asarray(visible))
         ts = tdensify.accumulate_stats(ts, torch.from_numpy(grads), torch.from_numpy(visible))
@@ -223,8 +223,8 @@ def test_train_step_with_densify_stats_matches_jax(absgrad):
         leaves = {k: v.requires_grad_(True) for k, v in params_from_numpy(raw, "cpu").items()}
         d, loss = ttrain.train_step_with_densify_stats(
             leaves, torch.optim.SGD(leaves.values(), lr=0.05),
-            tdensify.DensifyState.zero(64), [tcam(), tcam()], torch.from_numpy(targets),
-            config=port_cfg(route), absgrad=absgrad)
+            tdensify.DensifyState.zero(64, device="cpu"), [tcam(), tcam()],
+            torch.from_numpy(targets), config=port_cfg(route), absgrad=absgrad)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
         np.testing.assert_array_equal(d.count.numpy(), np.asarray(jd.count))
         assert_close(d.grad_accum.numpy(), jd.grad_accum, f"{route} stats")
@@ -247,7 +247,7 @@ def test_steps_then_densify_match_jax_counts(monkeypatch):
     jd = jdensify.DensifyState.zero(64)
     leaves = {k: v.requires_grad_(True) for k, v in params_from_numpy(raw, "cpu").items()}
     topt = torch.optim.SGD(leaves.values(), lr=0.05)
-    td = tdensify.DensifyState.zero(64)
+    td = tdensify.DensifyState.zero(64, device="cpu")
     for _ in range(3):
         state, jd, _ = step(state, jd, jcam(2), jnp.asarray(targets))
         td, _ = ttrain.train_step_with_densify_stats(leaves, topt, td, [tcam(), tcam()],
