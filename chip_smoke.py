@@ -31,8 +31,10 @@ exits nonzero without printing the final result line:
      force), and the shares of pairs no pixel keeps; B1's and B2's ptxas
      lines and B2's launch shape (cluster, threads, blocks per SM). Times
      each with CUDA events (median of 20 runs after 3 warm-ups; 3 runs after
-     1 for B2's plain version), the least time the card could take (bound),
-     and one PyTorch call computing the same function where there is one
+     1 for B2's plain version), the least time the card could take (bound:
+     B1 and B2 need the per-pair work only on the walked pairs whose (warp,
+     slot) pair the row test keeps, plus the row tests), and one PyTorch
+     call computing the same function where there is one
      (library); B4 and its library call also per call over 20 calls queued
      back to back (the device's time once the host's launch path overlaps
      it).
@@ -66,7 +68,14 @@ exits nonzero without printing the final result line:
      log-scales, as bench.py does for 2DGS), its slot tables with and
      without the maps; B6 and B7 against their plain version by the B1
      rule (the depth moments relative to their row's largest value) and
-     bit-equal with and without the residual; B8 (the maps' variant, which
+     bit-equal with and without the residual, their stop indices equal to
+     the plain serial walk's (surfel_stop_plain) on all but STOP_MAX_SHARE
+     of the pixels; their per-row skip: output and residual bit-equal to
+     the full walk's, its count of skipped (row, slot) pairs equal to the
+     plain mirror's, and by brute force over every pixel no skipped pair
+     that a pixel keeps; their ptxas lines and launch shapes (threads a
+     block, registers, shared memory, local bytes, blocks per SM); B8 (the
+     maps' variant, which
      training runs) against its plain version by the B2 rule with a seeded
      cotangent, bitwise equal across two runs; B8's ptxas line and launch
      shape (cluster, threads, registers, shared memory, spills). Times as
@@ -118,7 +127,10 @@ than ROUTE_GRAD_MAX_REL of it.
 The line before the last is a JSON object with each kernel's launches in
 one training step of its path (B6: in the render without maps; B9: in the
 probe's run, one entry per variant), its max abs error against the plain
-version, its times and its bound. The last line is
+version, its times and its bound (for B6-B8, as for B1 and B2, counting
+the per-pair work only on the walked pairs whose (pixel row, slot) pair the
+row test keeps, plus the row tests; B9 keeps B1's full-walk bound at the
+probe's shapes). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -145,6 +157,9 @@ GOLDEN_RTOL, GOLDEN_ATOL = 5e-5, 5e-6
 # or stop decision of a slot on a boundary pixel, so a few pixel-channels
 # may differ by up to ~alpha_threshold * colour.
 BLEND_ATOL, BLEND_MAX_ERR, BLEND_MAX_SHARE = 1e-5, 5e-3, 1e-4
+# B6/B7's stop index against the plain serial walk: the same flips move at
+# most this share of the pixels' stops.
+STOP_MAX_SHARE = 1e-3
 # Gradients, per row (a pdata field, or a parameter) with scale = max |plain|:
 # the f32 sums over pixels run in other orders (readings on an H100: max
 # 9.8e-7 of the scale for B2, 5.2e-7 for the two routes, none over 1e-4),
@@ -172,6 +187,20 @@ B1_OPS_PER_PAIR, B2_OPS_PER_PAIR = 25, 65
 # with its two divisions (24), the depth chain (12) and the 18 rows' pixel
 # sums (18).
 B6_OPS_PER_PAIR, B7_OPS_PER_PAIR, B8_OPS_PER_PAIR = 48, 60, 132
+# A blend needs the per-pair work only where some pixel of the row may
+# keep the slot: the row tests (ms_row_may_apply, ms_surfel_row_may_apply)
+# prove the rest unkept at a cost per (pixel row, slot) pair, so a bound
+# counts the walked pairs the row test keeps at the per-pair cost, and
+# each row test the kernel makes at its own. B1's test, per pixel row of
+# a warp: the clamped vertex with its division (11), the quadratic and the
+# linear term (8), the margin's magnitude (13), the margin, exponential
+# and compare (8), with one exponential. The surfel test: lam and its
+# margin (9), the filter's least exponent (11), the row terms (5), each
+# end's solve numerators and their magnitudes (2 x 25), the ends' phi, B
+# and margin (26), the vertex (21), with a log and three square roots on
+# the special-function units.
+B1_ROW_TEST_OPS, B1_ROW_TEST_SFU = 40, 1
+SURFEL_ROW_TEST_OPS, SURFEL_ROW_TEST_SFU = 122, 4
 # The route rule of phases 10 and 11 (see above), with room above the
 # readings at the disks' 1080p shapes on an H100 (NVIDIA H100 80GB HBM3,
 # 700 W): renders 1.6e-4 to 2.5e-4 of the values off by more than 1e-5 of
@@ -292,11 +321,11 @@ def blend_skip_counts(pdata, counts, ts: int, tw: int, config) -> dict:
     (warp, slot) pairs must equal the plain mirror's (row_may_apply_plain
     from B1's own stop indices); by brute force over every pixel (the
     per-pixel rule's keep), the row test must skip no pair a pixel of the
-    warp keeps. Returns the pairs walked (slot below the pixel's stop) and
-    those of them no pixel keeps (alpha below the threshold or sigma < 0),
-    the (warp, slot) pairs below the count, those no pixel of the warp
-    keeps and those the row test skips, and the pairs B1 tested and
-    skipped."""
+    warp keeps. Returns the pairs walked (slot below the pixel's stop),
+    those of them no pixel keeps (alpha below the threshold or sigma < 0)
+    and those whose (warp, slot) pair the row test keeps, the (warp, slot)
+    pairs below the count, those no pixel of the warp keeps and those the
+    row test skips, and the pairs B1 tested and skipped."""
     from mojosplat_tpu_torch.ops.raster_cuda import (
         B1_WARP_PIXELS, raster_tiles_skips, row_may_apply_plain, skipped_pairs_plain)
     from mojosplat_tpu_torch.ops.rasterization import _pixel_terms, tile_pixel_centers
@@ -310,7 +339,7 @@ def blend_skip_counts(pdata, counts, ts: int, tw: int, config) -> dict:
     if not torch.equal(skipped, mirror):
         raise AssertionError(f"B1 skipped {int(skipped.sum())} (warp, slot) pairs, the plain "
                              f"mirror {int(mirror.sum())}")
-    out = dict(walked=0, walked_unkept=0, warp_slots=0, warp_slots_unkept=0,
+    out = dict(walked=0, walked_unkept=0, walked_may=0, warp_slots=0, warp_slots_unkept=0,
                warp_slots_skipped=0, missed=0,
                tested=int(skipped_pairs_plain(torch.zeros_like(may), counts, stop).sum()),
                skipped=int(skipped.sum()))
@@ -331,6 +360,8 @@ def blend_skip_counts(pdata, counts, ts: int, tw: int, config) -> dict:
             G, nw, W, cap).any(dim=2)
         wlive = live[:, None, :].expand(G, nw, cap)
         wmay = may[g0 : g0 + G]
+        out["walked_may"] += int((torch.nn.functional.pad(walked, (0, 0, 0, nw * W - P))
+                                  .reshape(G, nw, W, cap) & wmay[:, :, None, :]).sum())
         out["warp_slots"] += int(wlive.sum())
         out["warp_slots_unkept"] += int((wlive & ~wkeep).sum())
         out["warp_slots_skipped"] += int((wlive & ~wmay).sum())
@@ -338,6 +369,69 @@ def blend_skip_counts(pdata, counts, ts: int, tw: int, config) -> dict:
     if out["missed"]:
         raise AssertionError(f"B1's row test skipped {out['missed']} kept (warp, slot) pairs")
     return out
+
+
+def surfel_skip_counts(pdata, counts, ts: int, tw: int, config, aux: bool, out, resid) -> dict:
+    """B6's or B7's per-row skip at these inputs. The skip's output and
+    residual (out, resid from the same kernel) must equal the full walk's
+    bit for bit (T where a chunk starts below the stop), its count of
+    skipped (pixel row, slot) pairs the plain mirror's
+    (surfel_row_may_apply_plain from the kernel's own stops); by brute force
+    over every pixel, the row test must skip no pair a pixel of the row
+    keeps. Returns the (row, slot) pairs the warps tested and skipped, the
+    (row, slot) pairs below the counts, those no pixel keeps and those the
+    row test skips, and the walked (pixel, slot) pairs, those of them no
+    pixel keeps and those whose (pixel row, slot) pair the row test keeps."""
+    from mojosplat_tpu_torch.ops.raster_cuda import RESID_CHUNK
+    from mojosplat_tpu_torch.ops.surfel_cuda import (
+        _surfel_geometry, raster_surfel_tiles_check, surfel_row_may_apply_plain,
+        surfel_skipped_pairs_plain)
+
+    n_tiles, rows = counts.shape[0], pdata.shape[0]
+    cap = pdata.shape[1] // n_tiles
+    tchunk, stop = resid
+    live = (torch.arange(tchunk.shape[1], device=pdata.device)[None, :, None]
+            * RESID_CHUNK) < stop[:, None, :]
+    skip = raster_surfel_tiles_check(pdata, counts, ts, tw, config, aux)
+    full = raster_surfel_tiles_check(pdata, counts, ts, tw, config, aux, walk_all=True)
+    for o_c, tc_c, st_c in (skip[:3], full[:3]):
+        if not (torch.equal(o_c.view(torch.int32), out.view(torch.int32))
+                and torch.equal(st_c, stop)
+                and torch.equal(tc_c.view(torch.int32)[live], tchunk.view(torch.int32)[live])):
+            raise AssertionError("the row skip's output or residual differs from the full walk's")
+    del full, live
+    may = surfel_row_may_apply_plain(pdata, n_tiles, ts, tw, config)
+    mirror = surfel_skipped_pairs_plain(may, counts, stop)
+    if not torch.equal(skip[3], mirror):
+        raise AssertionError(f"the kernel skipped {int(skip[3].sum())} (row, slot) pairs, the "
+                             f"plain mirror {int(mirror.sum())}")
+    out_d = dict(tested=int(surfel_skipped_pairs_plain(torch.zeros_like(may), counts,
+                                                      stop).sum()),
+                 skipped=int(skip[3].sum()), row_slots=0, row_slots_unkept=0,
+                 row_slots_skipped=0, missed=0, walked=0, walked_unkept=0, walked_may=0)
+    del skip
+    pd = pdata.reshape(rows, n_tiles, cap)
+    slot = torch.arange(cap, device=pdata.device)
+    group = 16  # tiles at a time: (group, ts * ts, cap) per-pixel terms
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=pdata.device)
+        G = tiles.shape[0]
+        keep = _surfel_geometry(tiles, pd, 0, cap, counts, ts, tw, config, aux)[2]["keep"]
+        rkeep = keep.reshape(G, ts, ts, cap).any(dim=2)
+        rlive = (slot[None, :] < counts[tiles, None])[:, None, :].expand(G, ts, cap)
+        rmay = may[g0 : g0 + G]
+        walked = slot[None, None, :] < stop[tiles][..., None]
+        out_d["row_slots"] += int(rlive.sum())
+        out_d["row_slots_unkept"] += int((rlive & ~rkeep).sum())
+        out_d["row_slots_skipped"] += int((rlive & ~rmay).sum())
+        out_d["missed"] += int((rkeep & ~rmay).sum())
+        out_d["walked"] += int(walked.sum())
+        out_d["walked_unkept"] += int((walked & ~keep).sum())
+        out_d["walked_may"] += int((walked.reshape(G, ts, ts, cap) & rmay[:, :, None, :]).sum())
+        del keep, walked
+    if out_d["missed"]:
+        raise AssertionError(f"the row test skipped {out_d['missed']} kept (row, slot) pairs")
+    return out_d
 
 
 def blend_agreement(name: str, got: torch.Tensor, want: torch.Tensor, scale=1.0,
@@ -455,7 +549,8 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
     from mojosplat_tpu_torch.ops.slice_cuda import segment_slice_gather
     from mojosplat_tpu_torch.ops.surfel_cuda import (
         raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_bwd_plain,
-        raster_surfel_tiles_fwd, raster_surfel_tiles_plain, surfel_bwd_shape)
+        raster_surfel_tiles_fwd, raster_surfel_tiles_plain, surfel_bwd_shape, surfel_fwd_shape,
+        surfel_stop_plain)
     from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles, render_surfels
     from mojosplat_tpu_torch.train import (
         activate, make_optimizer, surfel_loss, train_step_surfel)
@@ -520,8 +615,17 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
             out_r, resid = raster_surfel_tiles_fwd(pdata, counts, ts, tw, cfg_cuda, aux, True)
             if not torch.equal(out_r, out):
                 raise AssertionError(f"{kid}: the output changes when the residual is written")
+            stop_want = surfel_stop_plain(pdata, counts, ts, tw, cfg_plain, aux)
+            n_flip = int((resid[1] != stop_want).sum())
+            if n_flip > STOP_MAX_SHARE * stop_want.numel():
+                raise AssertionError(f"{kid}: {n_flip} of {stop_want.numel()} stop indices "
+                                     f"differ from the plain serial walk's")
             walked = torch.minimum(resid[1], counts[:, None])
             pairs, slots = int(walked.sum()), int(counts.sum())
+            skips = surfel_skip_counts(pdata, counts, ts, tw, cfg_cuda, aux, out, resid)
+            # The work the row test leaves: the walked pairs of the (pixel
+            # row, slot) pairs it keeps, and each (row, slot) pair tested.
+            need = skips["walked_may"]
             kernels.append(dict(
                 name=f"{kid} raster_surfel_tiles ({'with' if aux else 'without'} maps)",
                 route="cuda", source="mojosplat_tpu_torch/csrc/surfel_fwd.cu",
@@ -534,12 +638,38 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
                 plain_ms=cuda_ms(lambda: raster_surfel_tiles_plain(
                     pdata, counts, ts, tw, cfg_plain, aux), 3, 1),
                 **bound(4 * (rows * slots + n_tiles + out.numel()),
-                        (B7_OPS_PER_PAIR if aux else B6_OPS_PER_PAIR) * pairs, 2 * pairs),
-                library_ms=None,
+                        (B7_OPS_PER_PAIR if aux else B6_OPS_PER_PAIR) * need
+                        + SURFEL_ROW_TEST_OPS * skips["tested"],
+                        2 * need + SURFEL_ROW_TEST_SFU * skips["tested"]),
+                library_ms=None, skips=skips,
             ))
             phase(kid, f"pdata {tuple(pdata.shape)}, {slots} slots, {pairs} (pixel, slot) "
-                  f"pairs walked; bit-equal with the residual written")
-            del ref, out_r
+                  f"pairs walked, {need} of them in (row, slot) pairs the row test keeps; "
+                  f"bit-equal with the residual written; stop indices equal to "
+                  f"the plain serial walk's on all but {n_flip} of {stop_want.numel()} pixels")
+            for name, regs, spills, smem in ptxas_report(_kernels.build()[1]):
+                if f"surfel_fwd_kernelILb{int(aux)}E" in name:
+                    phase(kid, f"ptxas {name}: {regs} registers, {smem} bytes smem, {spills}")
+            phase(kid, f"row test: skipped {skips['skipped']} of the {skips['tested']} (pixel "
+                  f"row, slot) pairs its warps tested ({skips['skipped'] / skips['tested']:.4f}), "
+                  f"equal to the plain mirror's count; output and residual bit-equal to the full "
+                  f"walk's; of the {skips['row_slots']} (row, slot) pairs below the counts no "
+                  f"pixel keeps {skips['row_slots_unkept']} "
+                  f"({skips['row_slots_unkept'] / skips['row_slots']:.4f}) and the row test skips "
+                  f"{skips['row_slots_skipped']} "
+                  f"({skips['row_slots_skipped'] / skips['row_slots']:.4f}), none kept; of the "
+                  f"{skips['walked']} walked (pixel, slot) pairs {skips['walked_unkept']} "
+                  f"({skips['walked_unkept'] / skips['walked']:.4f}) are not kept")
+            shapes = {r: surfel_fwd_shape(aux, ts, r) for r in (False, True)}
+            kernels[-1]["shape"] = shapes[False]
+            for r, shape in shapes.items():
+                phase(kid, f"launch shape{' with the residual' if r else ''}: "
+                      f"{n_tiles * -(-P // shape['threads'])} blocks of "
+                      f"{shape['threads']} threads (a pixel a thread), {shape['registers']} "
+                      f"registers, {shape['local_bytes']} local bytes a thread, "
+                      f"{shape['shared_bytes']} shared bytes a block, {shape['blocks_per_sm']} "
+                      f"blocks ({shape['blocks_per_sm'] * shape['threads'] // 32} warps) per SM")
+            del ref, out_r, stop_want
 
         # B8, the maps' variant that training runs: pdata's blended slots,
         # gout, the residual's walked chunks and stop, counts, and d pdata.
@@ -563,7 +693,9 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
             plain_ms=cuda_ms(lambda: raster_surfel_tiles_bwd_plain(
                 pdata, counts, gout, ts, tw, cfg_plain, True), 3, 1),
             **bound(4 * (rows * slots + gout.numel() + chunk_reads + resid[1].numel()
-                         + n_tiles + d_pdata.numel()), B8_OPS_PER_PAIR * pairs, 2 * pairs),
+                         + n_tiles + d_pdata.numel()),
+                    B8_OPS_PER_PAIR * need + SURFEL_ROW_TEST_OPS * skips["tested"],
+                    2 * need + SURFEL_ROW_TEST_SFU * skips["tested"]),
             library_ms=None,
         ))
         shape = surfel_bwd_shape(True, ts)
@@ -1140,6 +1272,12 @@ def main() -> int:
         walked = torch.minimum(resid[1], counts[:, None])
         pairs = int(walked.sum())
         slots = int(counts.sum())
+        skips = blend_skip_counts(pdata, counts, ts, tw, cfg_cuda)
+        # The work the row test leaves: the walked pairs of the (warp, slot)
+        # pairs it keeps, and a test of each of the warp's rows per (warp,
+        # slot) pair tested.
+        need = skips["walked_may"]
+        row_tests = max(1, B1_WARP_PIXELS // ts) * skips["tested"]
         kernels.append(dict(
             name="B1 raster_tiles (blend forward)", route="cuda",
             source="mojosplat_tpu_torch/csrc/raster_fwd.cu",
@@ -1149,13 +1287,14 @@ def main() -> int:
             ms_with_residual=cuda_ms(
                 lambda: raster_tiles_fwd(pdata, counts, ts, tw, cfg_cuda, True), 20, 3),
             plain_ms=cuda_ms(lambda: raster_tiles_plain(pdata, counts, ts, tw, cfg_cuda), 20, 3),
-            **bound(4 * (rows * slots + n_tiles + out.numel()), B1_OPS_PER_PAIR * pairs, pairs),
-            library_ms=None,
+            **bound(4 * (rows * slots + n_tiles + out.numel()),
+                    B1_OPS_PER_PAIR * need + B1_ROW_TEST_OPS * row_tests,
+                    need + B1_ROW_TEST_SFU * row_tests),
+            library_ms=None, skips=skips,
         ))
         phase("B1", f"pdata {tuple(pdata.shape)}, {slots} slots, {pairs} (pixel, slot) "
-              f"pairs walked; bit-equal with the residual written")
-        skips = blend_skip_counts(pdata, counts, ts, tw, cfg_cuda)
-        kernels[-1]["skips"] = skips
+              f"pairs walked, {need} of them in (warp, slot) pairs the row test keeps; "
+              f"bit-equal with the residual written")
         phase("B1", f"row test: B1 skipped {skips['skipped']} of the {skips['tested']} "
               f"(warp, slot) pairs its warps ({B1_WARP_PIXELS} pixels each) tested "
               f"({skips['skipped'] / skips['tested']:.4f}), equal to the plain mirror's count; "
@@ -1195,7 +1334,9 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: raster_tiles_bwd_plain(
                 pdata, counts, gout, ts, tw, cfg_plain), 3, 1),
             **bound(4 * (rows * slots + gout.numel() + chunk_reads + resid[1].numel()
-                         + n_tiles + d_pdata.numel()), B2_OPS_PER_PAIR * pairs, pairs),
+                         + n_tiles + d_pdata.numel()),
+                    B2_OPS_PER_PAIR * need + B1_ROW_TEST_OPS * row_tests,
+                    need + B1_ROW_TEST_SFU * row_tests),
             library_ms=None,
         ))
         shape = raster_bwd_shape(rows - 6, ts)

@@ -44,8 +44,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> argument types of the C entry point (pointers, ints, floats, and
 # the stream last); every entry point returns an int error code. A null
-# pointer is passed as None. raster_bwd_info and surfel_bwd_info launch
-# nothing and take no stream: they report B2's and B8's launch shapes into a
+# pointer is passed as None. The ``*_info`` entry points launch nothing and
+# take no stream: they report a kernel's launch shape (B2, B6/B7, B8) into a
 # host int array (``launch_shape``).
 _SIGNATURES = {
     "expand_offsets_launch": (_P, _I, _I, _P, _I, _P),
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "raster_probe_launch": (_I, _I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
     "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
+    "surfel_fwd_info": (_I, _I, _I, _P),
+    "surfel_fwd_check_launch": (_I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
     "surfel_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "surfel_bwd_info": (_I, _I, _P),
 }
@@ -154,10 +156,11 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 def launch_shape(name: str, *args: int) -> dict:
-    """A cluster kernel's launch shape from the CUDA runtime, by the info
-    entry point ``name`` (builds the kernels): registers and local (spill)
-    bytes a thread, static shared bytes and threads a block, the cluster
-    width, resident blocks per SM and resident clusters on the card."""
+    """A kernel's launch shape from the CUDA runtime, by the info entry
+    point ``name`` (builds the kernels): registers and local (spill) bytes a
+    thread, static shared bytes and threads a block, the cluster width (1
+    without clusters), resident blocks per SM and resident clusters on the
+    card (blocks, without clusters)."""
     out = (ctypes.c_int * len(SHAPE_KEYS))()
     code = getattr(library(), name)(*args, ctypes.cast(out, ctypes.c_void_p))
     if code != 0:

@@ -99,28 +99,41 @@ __device__ __forceinline__ float ms_warp_transpose_sum(float (&x)[kTransposeRows
     return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 1);
 }
 
-// The launch shape of a cluster kernel with threads-thread blocks, as the
-// runtime sees it: out[0..6] = registers a thread, static shared bytes,
-// local (spill) bytes a thread, threads a block, the cluster width,
-// resident blocks per SM, and resident clusters on the card (for a grid of
-// 1024 clusters).
-static inline int ms_cluster_shape(const void* fn, int threads, int cluster, int* out) {
+// The launch shape of a kernel with threads-thread blocks and smem bytes of
+// dynamic shared memory, as the runtime sees it: out[0..6] = registers a
+// thread, shared bytes a block (static and dynamic), local
+// (spill) bytes a thread, threads a block, the cluster width (1 for a
+// kernel without clusters), resident blocks per SM, and resident clusters
+// on the card (for a grid of 1024 clusters; blocks for a kernel without
+// clusters).
+static inline int ms_cluster_shape(const void* fn, int threads, int cluster, int* out,
+                                   int smem = 0) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return static_cast<int>(err);
     int blocks = 0, clusters = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(cluster * 1024);
-    config.blockDim = dim3(threads);
-    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &config);
+    if (attr.requiredClusterWidth > 0) {
+        cudaLaunchConfig_t config = {};
+        config.gridDim = dim3(cluster * 1024);
+        config.blockDim = dim3(threads);
+        config.dynamicSmemBytes = smem;
+        err = cudaOccupancyMaxActiveClusters(&clusters, fn, &config);
+    } else {
+        int device = 0, sms = 0;
+        err = cudaGetDevice(&device);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        }
+        clusters = blocks * sms;
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     out[0] = attr.numRegs;
-    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[1] = static_cast<int>(attr.sharedSizeBytes) + smem;
     out[2] = static_cast<int>(attr.localSizeBytes);
     out[3] = threads;
-    out[4] = attr.requiredClusterWidth;
+    out[4] = attr.requiredClusterWidth > 0 ? attr.requiredClusterWidth : 1;
     out[5] = blocks;
     out[6] = clusters;
     return 0;

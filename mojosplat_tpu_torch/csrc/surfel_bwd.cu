@@ -49,10 +49,10 @@
 // so a round holds two chunks: half the barriers a slot of one, and still
 // 4 blocks an SM.
 //
-// No row test: the surfel alpha is opacity * max(g_surf, g_filt), and the
-// surface response of the ray/disk solve has no cheap bound over a pixel
-// row that is conservative under f32 rounding, so every walked slot is
-// replayed.
+// No row test yet: every walked slot is replayed. The forward's
+// ms_surfel_row_may_apply (surfel.cuh) bounds both branches of the surfel
+// alpha over a pixel row, conservatively under f32 rounding; B8 could skip
+// the same (row, slot) pairs.
 //
 // Bound on the card: per (pixel, slot) pair walked, the adjoint needs two
 // exponentials, six divisions and about 130 other f32 operations. Here the
@@ -91,20 +91,6 @@ __device__ __forceinline__ float warp_pair_sum(float a, float b, int lane) {
     return x;
 }
 
-// Staged slot j's fields f[0..REC) from a record array in shared memory.
-template <int REC>
-__device__ __forceinline__ void load_record(const float* records, int j, float (&f)[REC]) {
-    const float4* rec = reinterpret_cast<const float4*>(records) + j * (REC / 4);
-#pragma unroll
-    for (int q = 0; q < REC / 4; ++q) {
-        const float4 g = rec[q];
-        f[4 * q] = g.x;
-        f[4 * q + 1] = g.y;
-        f[4 * q + 2] = g.z;
-        f[4 * q + 3] = g.w;
-    }
-}
-
 template <bool AUX>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kMaxWarps * 32, kMinBlocks)
 surfel_bwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
@@ -117,7 +103,7 @@ surfel_bwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
     constexpr int kRows = AUX ? kSurfelAuxRows : kSurfelRows;
     constexpr int kCh = kRows - 12;  // rows blended as constants
     constexpr int kOut = AUX ? 9 : 5;
-    constexpr int kRec = (kRows + 3) / 4 * 4;   // a slot record: 16 or 20 floats
+    constexpr int kRec = ms_surfel_record<kRows>();  // a slot record: 16 or 20 floats
     constexpr int KG = K * kGroup;               // slots a round stages
     constexpr int kShare = kRows * KG / kSplit;  // (row, slot) sums each block writes a round
     static_assert(kRows * KG % kSplit == 0, "the round's sums split evenly");
@@ -220,7 +206,7 @@ surfel_bwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
 #pragma unroll 1
                     for (int j = 0; j < K && s0 + j < my_stop; ++j) {
                         float f[kRec];
-                        load_record<kRec>(recs, j, f);
+                        ms_surfel_load<kRec>(recs, j, f);
                         MsSurfel gs;
                         if (ms_surfel_alpha(f, 1, px, py, alpha_threshold, max_alpha, gs)) {
                             s_tb[j][tid] = T;
@@ -240,7 +226,7 @@ surfel_bwd_kernel(const float* __restrict__ pdata, int64_t stride, int cap,
                 auto adjoint = [&](int j, float (&d)[kPad], float& x16, float& x17) {
                     if (!((applied >> j) & 1u)) return;
                     float f[kRec];
-                    load_record<kRec>(recs, j, f);
+                    ms_surfel_load<kRec>(recs, j, f);
                     MsSurfel gs;
                     ms_surfel_alpha(f, 1, px, py, alpha_threshold, max_alpha, gs);  // kept
                     const float tb = s_tb[j][tid];

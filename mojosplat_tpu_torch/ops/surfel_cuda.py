@@ -37,7 +37,11 @@ z = qc2 + u a2 + v b2 (qc2 where the filter wins or the solve fails).
 On CPU tensors the wrappers run the plain versions, which port the Pallas
 kernels' math (``_surfel_chunk_geometry``, ``_fwd_kernel``,
 ``_bwd_kernel``) over chunks of ``chunk_size`` slots. On a CUDA tensor a
-wrapper launches its kernel or raises.
+wrapper launches its kernel or raises. B6/B7 skip the slots no pixel of a
+warp's rows can keep; ``surfel_row_may_apply_plain`` mirrors that row
+test, ``surfel_skipped_pairs_plain`` its count and ``surfel_stop_plain``
+the stop index the kernels write, and ``raster_surfel_tiles_check`` runs
+the kernels with the count, or with the test off (the full walk).
 """
 
 from __future__ import annotations
@@ -279,6 +283,179 @@ def raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts: int, tw: int,
     return d_pd.reshape(rows, n_tiles * cap)
 
 
+def surfel_fwd_warps(ts: int) -> int:
+    """Warps of a ts x ts tile in B6/B7 (``csrc/surfel_fwd.cu``): a thread
+    a pixel in blocks of up to 256 (whole warps), so warp w owns pixels
+    [32 w, 32 w + 32) of the tile."""
+    P = ts * ts
+    return -(-P // 256) * ((min(P, 256) + 31) // 32)
+
+
+def surfel_warp_rows(ts: int) -> torch.Tensor:
+    """(warps, ts) bool: the pixel rows each B6/B7 warp tests, those of its
+    pixels, taken whole (none for a warp past the tile)."""
+    w = torch.arange(surfel_fwd_warps(ts))
+    first = 32 * w // ts
+    last = torch.clamp((32 * w + 31) // ts, max=ts - 1)
+    r = torch.arange(ts)
+    return (r[None, :] >= first[:, None]) & (r[None, :] <= last[:, None])
+
+
+def surfel_row_may_apply_plain(pdata, n_tiles: int, ts: int, tw: int,
+                               config: RenderConfig) -> torch.Tensor:
+    """(n_tiles, ts, cap) bool: whether some pixel of each pixel row of a
+    tile may keep slot k; False only where none can.
+
+    The plain mirror of ``ms_surfel_row_may_apply`` (``csrc/surfel.cuh``),
+    each f32 operation in the same order: lam = ln(opacity / threshold)
+    raised by 1e-5 (|lam| + |ln threshold| + 1); no pixel keeps a slot with
+    lam < 0; the filter branch is out where the row's least dx^2 + dy^2
+    exceeds lam; the surface branch where phi = |N|^2 - 2 lam det^2 (N, det
+    the 2x2 solve's numerators and determinant, affine along the row,
+    interpolated between the end pixels') exceeds 2e-5 (M_N + s M_det) B
+    at both ends and at its vertex, s = sqrt(2 lam), M the products'
+    magnitudes and B the largest |N| + s |det| at the ends. NaN anywhere
+    and a threshold <= 0 may apply.
+    """
+    rows = pdata.shape[0]
+    cap = pdata.shape[1] // max(n_tiles, 1)
+    dev, f32 = pdata.device, torch.float32
+    pd = pdata.reshape(rows, n_tiles, cap)
+    log_thr = torch.log(torch.tensor(config.alpha_threshold, dtype=f32, device=dev))
+    r = torch.arange(ts, device=dev)
+    out = torch.empty((n_tiles, ts, cap), dtype=torch.bool, device=dev)
+    group = 64  # tiles at a time: (group, ts, cap) intermediates
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=dev)
+        ty, tx = tiles // tw, tiles % tw
+        ends = [((tx * ts + e * (ts - 1)).to(f32) + 0.5)[:, None, None] for e in (0, 1)]
+        py = ((ty[:, None] * ts + r[None, :]).to(f32) + 0.5)[..., None]  # (G, ts, 1)
+        qc0, qc1, qc2, a0, a1, a2, b0, b1, b2, c2x, c2y, op = (
+            pd[k, tiles][:, None, :] for k in range(12))  # each (G, 1, cap)
+        l0 = torch.log(op) - log_thr
+        lam = l0 + 1e-5 * ((l0.abs() + log_thr.abs()) + 1.0)
+        # The filter's least exponent over the row.
+        dy = py - c2y
+        lo, hi = ends[0] - c2x, ends[1] - c2x
+        mdx = torch.where(lo > 0, lo, torch.where(hi < 0, -hi, torch.zeros_like(hi)))
+        filt_out = (mdx * mdx + dy * dy) * (1.0 - 1e-5) > lam
+        # The surface: N and det at the end pixels.
+        A21, A22, r2 = _fms(a1, py, a2), _fms(b1, py, b2), -_fms(qc1, py, qc2)
+        nu, nv, det = [], [], []
+        md = mn = torch.zeros((), dtype=f32, device=dev)
+        for x in ends:
+            A11, A12, r1 = _fms(a0, x, a2), _fms(b0, x, b2), -_fms(qc0, x, qc2)
+            p11, p12 = A11 * A22, A12 * A21
+            pu1, pu2, pv1, pv2 = r1 * A22, r2 * A12, A11 * r2, A21 * r1
+            det.append(p11 - p12)
+            nu.append(pu1 - pu2)
+            nv.append(pv1 - pv2)
+            md = torch.fmax(md, p11.abs() + p12.abs())
+            mn = torch.fmax(mn, (pu1.abs() + pu2.abs()) + (pv1.abs() + pv2.abs()))
+        s2 = 2.0 * lam
+        s = torch.sqrt(s2)
+        phi, b = [], torch.zeros((), dtype=f32, device=dev)
+        for e in (0, 1):
+            n2 = nu[e] * nu[e] + nv[e] * nv[e]
+            phi.append(n2 - s2 * (det[e] * det[e]))
+            b = torch.fmax(b, torch.sqrt(n2) + s * det[e].abs())
+        margin = (2e-5 * (mn + s * md)) * b
+        du, dv, dd = nu[1] - nu[0], nv[1] - nv[0], det[1] - det[0]
+        qa = (du * du + dv * dv) - s2 * (dd * dd)
+        qb = (nu[0] * du + nv[0] * dv) - s2 * (det[0] * dd)
+        inside = (qa > 0) & (-qb > 0) & (-qb < qa)
+        vertex_out = torch.where(inside, (phi[0] - (qb * qb) / qa) > margin,
+                                 (qa == qa) & (qb == qb))
+        surf_out = (phi[0] > margin) & (phi[1] > margin) & vertex_out
+        out[g0 : g0 + tiles.shape[0]] = ~(lam < 0) & (~(lam < 1e30) | ~filt_out | ~surf_out)
+    return out
+
+
+def surfel_skipped_pairs_plain(may, counts, stop) -> torch.Tensor:
+    """(n_tiles, warps) int32: B6/B7's count of the (pixel row, slot) pairs
+    its row test skipped, from ``surfel_row_may_apply_plain``'s ``may``
+    (n_tiles, ts, cap) and the kernel's ``stop`` (n_tiles, ts * ts). A warp
+    tests the slots below the count in groups of 32, each against every
+    row of the warp (``surfel_warp_rows``), unless all its pixels stopped
+    before the group."""
+    n_tiles, ts, cap = may.shape
+    dev = may.device
+    pw = (torch.arange(ts * ts, device=dev) // 32)  # each pixel's warp
+    nw = surfel_fwd_warps(ts)
+    wstop = torch.full((n_tiles, nw), -1, dtype=torch.int64, device=dev)
+    wstop = wstop.scatter_reduce(1, pw.expand(n_tiles, -1), stop.to(torch.int64), "amax")
+    slot = torch.arange(cap, device=dev)
+    live = slot[None, :] < counts.clamp(0, cap)[:, None].to(torch.int64)  # (n_tiles, cap)
+    tested = live[:, None, :] & ((slot // 32 * 32)[None, None, :] <= wstop[..., None])
+    # Rows a warp tests that skip each slot: small integers, exact in f32.
+    per_warp = torch.einsum("wr,trk->twk", surfel_warp_rows(ts).to(dev, torch.float32),
+                            (~may).to(torch.float32)).to(torch.int64)
+    return (per_warp * tested).sum(dim=2).to(torch.int32)
+
+
+def surfel_stop_plain(pdata, counts, ts: int, tw: int, config: RenderConfig,
+                      aux: bool = False) -> torch.Tensor:
+    """Plain version of B6's and B7's ``stop`` residual: (n_tiles, ts * ts)
+    int32, each pixel's first slot whose transmittance test ends its walk,
+    or the tile's count (clamped to cap). A serial f32 walk over the slots,
+    the kernels' own: T *= 1 - alpha at each kept slot."""
+    rows, n_tiles, cap, _, _ = _layout(pdata, counts, aux)
+    P, K, eps = ts * ts, config.chunk_size, config.transmittance_eps
+    dev = pdata.device
+    pd = pdata.reshape(rows, n_tiles, cap)
+    out = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
+    group = config.tile_batch or max(n_tiles, 1)
+    for g0 in range(0, n_tiles, group):
+        tiles = torch.arange(g0, min(g0 + group, n_tiles), device=dev)
+        G = tiles.shape[0]
+        T = torch.ones((G, P), dtype=torch.float32, device=dev)
+        alive = torch.ones((G, P), dtype=torch.bool, device=dev)
+        stop = counts[tiles].clamp(0, cap).to(torch.int32)[:, None].expand(G, P).clone()
+        for k0 in range(0, cap, K):
+            _, alpha, geo = _surfel_geometry(tiles, pd, k0, K, counts, ts, tw, config, aux)
+            for j in range(alpha.shape[-1]):
+                keep = geo["keep"][..., j] & alive
+                nxt = T * (1.0 - alpha[..., j])
+                ends = keep & (nxt <= eps)
+                stop[ends] = k0 + j
+                alive &= ~ends
+                T = torch.where(keep & ~ends, nxt, T)
+        out[g0 : g0 + G] = stop
+    return out
+
+
+def raster_surfel_tiles_check(pdata, counts, ts: int, tw: int, config: RenderConfig,
+                              aux: bool, walk_all: bool = False):
+    """(out, tchunk, stop, skipped): B6 (B7 with ``aux``) with its residual
+    and each warp's count of the (pixel row, slot) pairs its row test
+    skipped, (n_tiles, ``surfel_fwd_warps(ts)``) int32; with ``walk_all``
+    the row test is off (the full walk, every count 0), to hold the skip's
+    output and residual to it bit for bit. The check of a kernel, so CUDA
+    tensors only (``surfel_row_may_apply_plain``,
+    ``surfel_skipped_pairs_plain`` and ``surfel_stop_plain`` are its plain
+    counterparts). Counts a launch as ``raster_surfel_tiles_fwd`` does."""
+    if pdata.device.type != "cuda":
+        raise ValueError("raster_surfel_tiles_check runs the kernel: pass CUDA tensors")
+    n_tiles = counts.shape[0]
+    cap = _check_surfel_args(pdata, counts, ts, aux)
+    rows, P, dev = pdata.shape[0], ts * ts, pdata.device
+    out = torch.empty((n_tiles, 9 if aux else 5, P), dtype=torch.float32, device=dev)
+    tchunk = torch.empty((n_tiles, -(-cap // RESID_CHUNK), P), dtype=torch.float32, device=dev)
+    stop = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
+    skipped = torch.zeros((n_tiles, surfel_fwd_warps(ts)), dtype=torch.int32, device=dev)
+    _kernels.launch(
+        "surfel_fwd_check_launch", dev, int(walk_all), pdata.data_ptr(), rows, n_tiles, cap,
+        counts.data_ptr(), ts, tw, config.alpha_threshold, config.max_alpha,
+        config.transmittance_eps, out.data_ptr(), tchunk.data_ptr(), stop.data_ptr(),
+        skipped.data_ptr(),
+    )
+    if aux:
+        raster_surfel_tiles_fwd.launches_maps += 1
+    else:
+        raster_surfel_tiles_fwd.launches += 1
+    return out, tchunk, stop, skipped
+
+
 def _check_surfel_args(pdata, counts, ts: int, aux: bool) -> int:
     cap = check_tiles(pdata, counts, ts)
     _layout(pdata, counts, aux)
@@ -349,6 +526,13 @@ def raster_surfel_tiles_bwd(pdata, counts, gout, residual, ts: int, tw: int,
     )
     raster_surfel_tiles_bwd.launches += 1
     return d_pdata
+
+
+def surfel_fwd_shape(aux: bool, ts: int, residual: bool) -> dict:
+    """B6's (B7's with ``aux``) launch shape for ts x ts tiles, the
+    instantiation without or with the ``residual`` (``_kernels.launch_shape``;
+    no clusters)."""
+    return _kernels.launch_shape("surfel_fwd_info", int(aux), int(residual), ts)
 
 
 def surfel_bwd_shape(aux: bool, ts: int) -> dict:

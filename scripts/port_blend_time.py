@@ -13,7 +13,8 @@ route; B2 gets a seeded output cotangent. 2DGS: phase 9's, the scene read
 as disks (its first two log-scales), its slot tables without the maps (B6)
 and with them (B7, whose residual B8 reads); B8 gets a seeded cotangent.
 Prints the family's ptxas lines (registers, shared memory, spills), the
-backward's launch shape and, as its last line, one JSON object: each
+launch shapes (B2's; or B6's and B7's, without and with the residual, and
+B8's) and, as its last line, one JSON object: each
 kernel's time (median of 20 CUDA-event runs after 3 warm-ups,
 chip_smoke.cuda_ms; the forward also with its residual written), the
 card's name and power limit, and the sum of |d pdata| (to tell two
@@ -79,8 +80,8 @@ def time_2dgs(cs, params, sh_degree, cam, dev) -> dict:
     from mojosplat_tpu_torch.ops.binning import num_tiles
     from mojosplat_tpu_torch.ops.sh import sh_to_color
     from mojosplat_tpu_torch.ops.surfel_cuda import (
-        raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_fwd)
-    from mojosplat_tpu_torch.ops.surfel_cuda import surfel_bwd_shape
+        raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_fwd, surfel_bwd_shape,
+        surfel_fwd_shape)
     from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles
 
     cfg = RenderConfig(raster_impl="cuda", **cs.SCENE_BUDGETS)
@@ -91,6 +92,9 @@ def time_2dgs(cs, params, sh_degree, cam, dev) -> dict:
     colors = sh_to_color(params["features"], params["means3d"], cam.position, sh_degree)
     out = {}
     for aux, kid in ((False, "b6"), (True, "b7")):
+        for resid in (False, True):
+            print(f"{kid.upper()} launch shape{' with the residual' if resid else ''} "
+                  f"{json.dumps(surfel_fwd_shape(aux, ts, resid))}")
         pdata, counts = pack_surfel_tiles(*geometry, colors, cam, bins, cfg, aux)
         out[f"{kid}_ms"] = cs.cuda_ms(
             lambda: raster_surfel_tiles(pdata, counts, ts, tw, cfg, aux), 20, 3)

@@ -18,7 +18,12 @@ gradients of the packed gather. The surfel blend B6/B7 is held to B1's
 rule and its backward B8 to B2's, and B8 is bitwise equal to itself, also
 on edge slots (failed solves, the s2 clamp, opacities at the threshold,
 unapplied chunks, early stops) and runs in clusters of 4 blocks with no
-local memory. B4 is held on every capacity column.
+local memory; there, and on grazing disks, B6/B7 also give the serial
+walk's stops (all but 0.1%) and the same output with and without the
+residual, their row skip's output and residual equal the full walk's bit
+for bit and its count of skipped (row, slot) pairs the plain mirror's, in
+blocks of at most 256 threads, 32 warps an SM, with no local memory. B4 is
+held on every capacity column.
 The probe's variants (B9) are held to B1's rule, blend1 and blend3 with a
 share of 0.5% (a weight's bf16 rounding turns an f32 ulp into 2^-8 of the
 product), blend and memonly within 1e-6 of the row's scale; its full
@@ -48,9 +53,11 @@ from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_co
 from mojosplat_tpu_torch.ops.slice_cuda import (
     segment_slice_gather, segment_slice_gather_plain)
 from mojosplat_tpu_torch.ops.surfel_cuda import (
-    primed_surfel_columns, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
-    raster_surfel_tiles_fwd, raster_surfel_tiles_plain, surfel_bwd_shape)
-from mojosplat_tpu_torch.surfel import oriented_normal_columns, surfel_alpha_columns
+    raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
+    raster_surfel_tiles_check, raster_surfel_tiles_fwd, raster_surfel_tiles_plain,
+    surfel_bwd_shape, surfel_fwd_shape, surfel_row_may_apply_plain, surfel_skipped_pairs_plain,
+    surfel_stop_plain)
+from torch_surfel_cases import grazing_pdata, surfel_edge_pdata, surfel_pdata
 
 pytestmark = pytest.mark.cuda
 
@@ -300,32 +307,6 @@ def test_gather_adjoint_is_deterministic(dev):
     torch.testing.assert_close(a[3], want[5], rtol=1e-5, atol=1e-5)
 
 
-def surfel_pdata(rng, n_tiles, tw, ts, cap, aux):
-    """Packed surfel slot rows (16 or 18, n_tiles * cap): each slot a disk
-    whose centre projects within 4 px of its tile, one in ten edge-on, made
-    with the port's own column functions for a camera on the world axes."""
-    H, W = n_tiles // tw * ts, tw * ts
-    f = 1.2 * W
-    cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=H, W=W, fx=f, fy=f, cx=W / 2,
-                        cy=H / 2, device="cpu")
-    m = n_tiles * cap
-    tile = np.repeat(np.arange(n_tiles), cap)
-    sx = (tile % tw) * ts + rng.uniform(-4, ts + 4, m)
-    sy = (tile // tw) * ts + rng.uniform(-4, ts + 4, m)
-    z = rng.uniform(1.5, 4.0, m)
-    means = np.stack([(sx - W / 2) / f * z, (sy - H / 2) / f * z, z], 1)
-    scales = np.log(rng.uniform(0.5, 8.0, (m, 2)) * z[:, None] / f)
-    quats = rng.normal(size=(m, 4))
-    quats[rng.random(m) < 0.1] = [np.cos(np.pi / 4), np.sin(np.pi / 4), 0.0, 0.0]
-    opac = rng.uniform(0.05, 0.99, m)
-    cols = surfel_alpha_columns(
-        *(torch.from_numpy(a.astype(np.float32)) for a in (means, scales, quats, opac)), cam)
-    pcols = list(primed_surfel_columns(cols, cam))
-    pcols += [torch.from_numpy(rng.uniform(0, 1.5, m).astype(np.float32)) for _ in range(3)]
-    pcols += list(oriented_normal_columns(cols)) if aux else [torch.zeros(m)]
-    return torch.stack(pcols).numpy()
-
-
 @pytest.mark.parametrize("ts,aux", [(16, False), (32, False), (8, True), (16, True),
                                     (32, True)])
 def test_surfel_kernels_match_plain(dev, ts, aux):
@@ -368,31 +349,6 @@ def test_surfel_kernels_match_plain(dev, ts, aux):
     assert torch.equal(kernel_grad(), d_got)
 
 
-def surfel_edge_pdata(rng, n_tiles, tw, ts, cap, aux):
-    """surfel_pdata with B8's edge cases mixed in (slot index k mod 7):
-    failed solves (the two disk axes equal, so det A = 0 at every pixel),
-    disks shrunk 1000x (s2 clamps at 1e4 away from their centre), and
-    opacities at the alpha threshold with the projected centre on a pixel
-    centre (alpha exactly 1/255 there); no slot of chunk 3 of tile 11 is
-    applied (opacity 0), and tile 10's disks cover it at opacity 0.97, so
-    its pixels stop within the first chunks."""
-    pd = surfel_pdata(rng, n_tiles, tw, ts, cap, aux)
-    k = np.arange(n_tiles * cap) % 7
-    tile = np.repeat(np.arange(n_tiles), cap)
-    slot = np.arange(n_tiles * cap) % cap
-    pd[6:9, k == 1] = pd[3:6, k == 1]
-    pd[3:9, k == 2] *= np.float32(1e-3)
-    sel = k == 3
-    pd[11, sel] = np.float32(1.0 / 255.0)
-    pd[9, sel] = (tile[sel] % tw) * ts + 3.5
-    pd[10, sel] = (tile[sel] // tw) * ts + 1.5
-    pd[11, (tile == 11) & (slot // 16 == 3)] = 0.0
-    big = tile == 10
-    pd[3:9, big] *= np.float32(100.0)
-    pd[11, big] = np.float32(0.97)
-    return pd
-
-
 @pytest.mark.parametrize("ts,aux", [(8, False), (16, False), (32, False), (8, True),
                                     (16, True), (32, True)])
 def test_surfel_bwd_kernel_edge_slots(dev, ts, aux):
@@ -427,6 +383,56 @@ def test_surfel_bwd_kernel_edge_slots(dev, ts, aux):
     assert shape["cluster"] == 4, shape
     assert shape["threads"] == {8: 32, 16: 64, 32: 256}[ts], shape
     assert shape["blocks_per_sm"] >= 3 and shape["local_bytes"] == 0, shape
+
+
+@pytest.mark.parametrize("ts,aux", [(8, False), (16, False), (32, False), (8, True),
+                                    (16, True), (32, True)])
+def test_surfel_fwd_kernel_edge_slots(dev, ts, aux):
+    rng = np.random.default_rng(ts * 5 + aux + 11)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(grazing_pdata(rng, n_tiles, tw, ts, cap, aux)).to(dev)
+    # Tile 10 stops early; tile 11 (600 > cap) holds a chunk no pixel applies.
+    counts = torch.tensor([0, 1, 15, 16, 17, 255, 256, 257, 511, 512, 300, 600],
+                          dtype=torch.int32, device=dev)
+    oc = 9 if aux else 5
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, tile_batch=4)
+    got = raster_surfel_tiles(pdata, counts, ts, tw, cfg, aux)
+    got_r, (tchunk, stop) = raster_surfel_tiles_fwd(pdata, counts, ts, tw, cfg, aux, True)
+    skip = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, aux)
+    full = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, aux, walk_all=True)
+    want = raster_surfel_tiles_plain(pdata, counts, ts, tw, cfg, aux)
+    want_stop = surfel_stop_plain(pdata, counts, ts, tw, cfg, aux)
+    may = surfel_row_may_apply_plain(pdata, n_tiles, ts, tw, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (n_tiles, oc, ts * ts) and torch.equal(got_r, got)
+    scale = want.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    diff = (got - want).abs() / scale
+    assert int((diff > 1e-5).sum()) <= 1e-4 * diff.numel()
+    assert float(diff.max()) <= 5e-3
+    assert torch.all(got[0, -1] == 1.0) and torch.all(got[0, :-1] == 0.0)
+    # The serial walk's stops: a flip of a threshold or stop decision moves
+    # at most 0.1% of them.
+    assert stop.shape == want_stop.shape == (n_tiles, ts * ts)
+    assert int((stop != want_stop).sum()) <= 1e-3 * stop.numel()
+    assert int(stop[10].max()) < 64 and int(stop[0].max()) == 0
+    assert bool((stop <= counts.clamp(max=cap)[:, None]).all())
+    # The row skip against the full walk: output, stops and every chunk T
+    # below a stop bit for bit; its count of skipped (row, slot) pairs equal
+    # to the plain mirror's from the kernel's own stops.
+    live = (torch.arange(tchunk.shape[1], device=dev)[None, :, None] * 16) < stop[:, None, :]
+    for out_c, tchunk_c, stop_c in (skip[:3], full[:3]):
+        assert torch.equal(out_c.view(torch.int32), got.view(torch.int32))
+        assert torch.equal(stop_c, stop)
+        assert torch.equal(tchunk_c.view(torch.int32)[live], tchunk.view(torch.int32)[live])
+    assert int(full[3].abs().sum()) == 0
+    want_skipped = surfel_skipped_pairs_plain(may, counts, stop)
+    assert torch.equal(skip[3], want_skipped), (int(skip[3].sum()), int(want_skipped.sum()))
+    assert int(skip[3].sum()) > 0
+    for residual in (False, True):
+        shape = surfel_fwd_shape(aux, ts, residual)
+        assert shape["cluster"] == 1 and shape["threads"] == {8: 64, 16: 256, 32: 256}[ts], shape
+        assert shape["blocks_per_sm"] * shape["threads"] // 32 >= 32, shape
+        assert shape["local_bytes"] == 0, shape
 
 
 def test_surfel_kernels_reject_what_they_do_not_take(dev):

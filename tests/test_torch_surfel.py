@@ -42,7 +42,7 @@ from mojosplat_tpu_torch.convert import camera_from_numpy, params_from_numpy
 from mojosplat_tpu_torch.ops.surfel_cuda import (
     primed_surfel_columns, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
     raster_surfel_tiles_plain)
-from test_torch_cuda import surfel_pdata
+from torch_surfel_cases import surfel_pdata
 
 ROOT = Path(__file__).resolve().parent.parent
 KEYS = ("means3d", "scales", "quats", "opacities", "features")
