@@ -24,10 +24,13 @@ exits nonzero without printing the final result line:
      and bit-equal with and without its backward residual; B2 (with a seeded
      output cotangent) within 1e-4 of each gradient row's scale on at least
      99.999% of values and within 1e-3 of it everywhere; B3 on the route's
-     real sorted keys (the slot ids, dropped past each tile's count) within
-     rtol 1e-5 of index_add_. B2 and B3 must be bitwise equal across two
-     runs. B1's row test: the kernel's count of skipped (warp, slot) pairs
-     equal to the plain mirror's, no skipped pair that a pixel keeps (brute
+     real sorted keys (the slot ids, dropped past each tile's count), B2's
+     rows read through the sort's perm as the gather's adjoint calls it,
+     bit-equal to its plain version on CPU copies of the sorted payload
+     (index_add_ on the CPU adds in row order, as B3 does), also without
+     perm. B2 and B3 must be bitwise equal across two runs. B1's row test:
+     the kernel's count of skipped (warp, slot) pairs equal to the plain
+     mirror's, no skipped pair that a pixel keeps (brute
      force), and the shares of pairs no pixel keeps; B1's and B2's ptxas
      lines and B2's launch shape (cluster, threads, blocks per SM). Times
      each with CUDA events (median of 20 runs after 3 warm-ups; 3 runs after
@@ -35,9 +38,12 @@ exits nonzero without printing the final result line:
      B1 and B2 need the per-pair work only on the walked pairs whose (warp,
      slot) pair the row test keeps, plus the row tests), and one PyTorch
      call computing the same function where there is one
-     (library); B4 and its library call also per call over 20 calls queued
-     back to back (the device's time once the host's launch path overlaps
-     it).
+     (library); B3, B4, B5 and the library calls of B3 and B4 also per call
+     over 20 calls queued back to back (the device's time once the host's
+     launch path overlaps it). B3's launch shape (threads, registers,
+     shared and local bytes, blocks per SM), its time on the sorted payload
+     without perm, and the whole gather adjoint's time at the step's shapes
+     (the sort, B3, the zeroed pad rows; by autograd.grad).
   5. Render: the trained 1M-gaussian scene (assets/trained_scene_1m.npz)
      at 1920x1080 with bench.py's preset 6 budgets (tile_size 32,
      max_tile_span 4, 8x intersection capacity, tile_capacity 512,
@@ -79,7 +85,10 @@ exits nonzero without printing the final result line:
      training runs) against its plain version by the B2 rule with a seeded
      cotangent, bitwise equal across two runs; B8's ptxas line and launch
      shape (cluster, threads, registers, shared memory, spills). Times as
-     in phase 4 (the plain versions 3 runs after 1).
+     in phase 4 (the plain versions 3 runs after 1). Then B3 at the 2DGS
+     adjoint's shapes: B8's 18 rows through the sort of the disks' slot
+     keys, bit-equal to the plain version on the CPU and across two runs,
+     its times (single and queued) and the gather adjoint's time.
  10. 2DGS render: the disks at 1920x1080 with the same budgets under
      no_grad on the "cuda" route, with the maps (B7, B4 and B5 launched,
      no backward kernel, no residual) and without (B6); drop counters equal
@@ -296,6 +305,39 @@ def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
     if t_bytes >= t_ops:
         return dict(bound_ms=t_bytes, bound_by="bytes")
     return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def b3_bit_equal(name: str, got: torch.Tensor, sorted_cols: torch.Tensor,
+                 keys: torch.Tensor, n: int) -> float:
+    """B3's sums against its plain version on CPU copies of the sorted
+    payload, bit for bit (index_add_ on the CPU adds in row order from 0, as
+    B3 does). Returns the max abs difference, 0."""
+    from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols_plain
+
+    want = segment_sum_cols_plain(sorted_cols.cpu(), keys.cpu(), n)
+    got = got.cpu()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} sums differ from the plain "
+                             f"version on the CPU (max {float((got - want).abs().max()):.3e})")
+    return float((got - want).abs().max())
+
+
+def adjoint_ms(slot_gids, counts, g, nfields: int, n: int) -> dict:
+    """The slot gather's adjoint (raster_cuda._GatherRows.backward: the
+    sort, B3, the pad rows) for the cotangent ``g`` (rows, n_slots) of a
+    gather of ``slot_gids`` with ``counts`` from ``n`` columns: ms of one
+    call and per call over 20 queued back to back, by autograd.grad on a
+    graph kept."""
+    from mojosplat_tpu_torch.ops.raster_cuda import gather_slots
+
+    with torch.enable_grad():
+        packed = torch.zeros((g.shape[0], n), device=g.device, requires_grad=True)
+        out = gather_slots(packed, slot_gids, counts, nfields)
+
+        def run():
+            torch.autograd.grad(out, packed, g, retain_graph=True)
+
+        return dict(ms=cuda_ms(run, 20, 3), ms_queued=cuda_ms_queued(run, 20, 3))
 
 
 def ptxas_report(log: str) -> list[tuple[str, int, str, int]]:
@@ -712,7 +754,39 @@ def surfel_phases(raw: dict, sh_degree: int, cam, gcam, gcfg, kernels: list) -> 
         for k in kernels[-3:]:
             phase("time", f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
                   f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library none")
+
+        # B3 at the 2DGS adjoint's shapes: B8's 18 rows read through the sort
+        # of the disks' slot keys, as train_step_surfel's adjoint calls it.
+        n = params["means3d"].shape[0]
+        cap = cfg_cuda.tile_capacity
+        slot_gids = segment_slice_gather(
+            bins.gaussian_ids, bins.tile_ranges.reshape(-1, 2)[:, 0].contiguous(), cap)
+        live = (torch.arange(cap, device=dev)[None, :] < counts[:, None]).reshape(-1)
+        keys, perm = torch.sort(torch.where(live, slot_gids.clamp(0, n - 1), n), stable=True)
+        cols = d_pdata.index_select(1, perm).contiguous()
+        seg = segment_sum_cols(d_pdata, keys, n, perm=perm)
+        err = b3_bit_equal("B3 (2DGS)", seg, cols, keys, n)
+        if not torch.equal(segment_sum_cols(d_pdata, keys, n, perm=perm), seg):
+            raise AssertionError("B3 (2DGS): two runs differ")
+        n_live, nf = int(live.sum()), d_pdata.shape[0]
+        routed = nf * n_live
+        b3 = next(k for k in kernels if k["name"].startswith("B3"))
+        b3["fields_18"] = dict(
+            fields=nf, live=n_live, max_abs_err=err,
+            ms=cuda_ms(lambda: segment_sum_cols(d_pdata, keys, n, perm=perm), 20, 3),
+            ms_queued=cuda_ms_queued(
+                lambda: segment_sum_cols(d_pdata, keys, n, perm=perm), 20, 3),
+            **bound(4 * (routed + 2 * n_live + keys.numel() + nf * n), routed),
+            adjoint_ms=adjoint_ms(slot_gids, counts, d_pdata, nf, n))
+        f18 = b3["fields_18"]
+        phase("B3", f"at the 2DGS adjoint's shapes: {nf} x {keys.shape[0]} values through "
+              f"perm ({n_live} live) -> {n} segments: bit-equal to the plain version on the "
+              f"CPU, two runs bitwise equal; {f18['ms']:.4f} ms, queued {f18['ms_queued']:.4f} "
+              f"ms a call, bound {f18['bound_ms']:.4f} ms; "
+              f"the gather adjoint {f18['adjoint_ms']['ms']:.4f} ms a call, "
+              f"{f18['adjoint_ms']['ms_queued']:.4f} queued")
         del bins, colors, pdata, counts, out, resid, gout, d_pdata, d_want
+        del slot_gids, live, keys, perm, cols, seg
 
     # ---- 10. The main path, serving: render the disks on the "cuda" route
     counters = {"B4": segment_expand_offsets, "B5": segment_slice_gather, "B1": raster_tiles,
@@ -1117,7 +1191,8 @@ def main() -> int:
         B1_WARP_PIXELS, gather_tile_data, raster_bwd_shape, raster_tiles, raster_tiles_bwd,
         raster_tiles_bwd_plain, raster_tiles_fwd, raster_tiles_plain)
     from mojosplat_tpu_torch.ops.raster_probe import raster_variant
-    from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
+    from mojosplat_tpu_torch.ops.segsum_cuda import (
+        segment_sum_cols, segment_sum_cols_plain, segsum_shape)
     from mojosplat_tpu_torch.ops.sh import sh_to_color
     from mojosplat_tpu_torch.ops.slice_cuda import (
         segment_slice_gather, segment_slice_gather_plain)
@@ -1251,11 +1326,14 @@ def main() -> int:
             replaces="mojosplat_tpu/ops/slice_pallas.py:36",
             max_abs_err=float((got - want).abs().max()),
             ms=cuda_ms(lambda: segment_slice_gather(bins.gaussian_ids, starts, cap), 20, 3),
+            ms_queued=cuda_ms_queued(
+                lambda: segment_slice_gather(bins.gaussian_ids, starts, cap), 20, 3),
             plain_ms=cuda_ms(lambda: segment_slice_gather_plain(bins.gaussian_ids, starts, cap), 20, 3),
             **bound(4 * (n_tiles + covered + n_tiles * cap), 0),
             library_ms=None,
         ))
-        phase("B5", f"{n_tiles} tiles x {cap} slots: exact")
+        phase("B5", f"{n_tiles} tiles x {cap} slots: exact; 20 calls queued back to back: "
+              f"{kernels[-1]['ms_queued']:.4f} ms a call")
         slot_gids = got
 
         # B1: the slots each tile blends, counts, and the output; the pairs
@@ -1350,45 +1428,71 @@ def main() -> int:
         del d_want
 
         # B3: the gather adjoint's keys (the clamped slot ids, n past each
-        # tile's count) sorted, with B2's first 6 + C rows as the payload;
-        # reads the columns and keys once, writes (F, N) once, one add per
-        # value.
+        # tile's count) sorted, with B2's first 6 + C rows read in that order
+        # through the sort's perm, as the adjoint calls it; held bit for bit
+        # to the plain version on CPU copies (index_add_ on the CPU adds in
+        # row order, as B3 does). Bound: the live values, their perm entries
+        # and the keys read once, (F, N) written once, one add per value.
+        nf = 6 + colors.shape[1]
+        rows_b3 = d_pdata[:nf]
         safe = slot_gids.clamp(0, n - 1)
         live = (torch.arange(cap, device=dev)[None, :] < counts[:, None]).reshape(-1)
         keys, perm = torch.sort(torch.where(live, safe, n), stable=True)
         longest = [int(torch.bincount(k).max()) for k in (safe, keys[keys < n])]
-        cols = d_pdata[: 6 + colors.shape[1]].index_select(1, perm).contiguous()
-        seg = segment_sum_cols(cols, keys, n)
-        seg_want = segment_sum_cols_plain(cols, keys, n)
-        diff = (seg - seg_want).abs()
-        tol = 1e-5 * (seg_want.abs().amax(dim=1, keepdim=True) + seg_want.abs())
-        if not bool((diff <= tol).all()):
-            raise AssertionError(f"B3: disagrees with index_add_ (max {float(diff.max()):.3e})")
+        cols = rows_b3.index_select(1, perm).contiguous()  # the sorted payload
+        seg = segment_sum_cols(rows_b3, keys, n, perm=perm)
+        err = b3_bit_equal("B3", seg, cols, keys, n)
         if not torch.equal(segment_sum_cols(cols, keys, n), seg):
+            raise AssertionError("B3: the sorted payload's sums differ from perm's")
+        if not torch.equal(segment_sum_cols(rows_b3, keys, n, perm=perm), seg):
             raise AssertionError("B3: two runs differ")
         keys64 = keys.long()
-        sink = torch.zeros((cols.shape[0], n + 1), device=dev)  # + the dropped key
-        routed = cols.shape[0] * int(live.sum())  # the values B3 reads and adds
+        sink = torch.zeros((nf, n + 1), device=dev)  # + the dropped key
+        n_live = int(live.sum())
+        routed = nf * n_live  # the values B3 reads and adds
+        shape = segsum_shape()
         kernels.append(dict(
             name="B3 segment_sum_cols", route="cuda",
             source="mojosplat_tpu_torch/csrc/segsum.cu",
             replaces="mojosplat_tpu/ops/segsum_pallas.py:79",
-            max_abs_err=float(diff.max()),
-            ms=cuda_ms(lambda: segment_sum_cols(cols, keys, n), 20, 3),
-            plain_ms=cuda_ms(lambda: segment_sum_cols_plain(cols, keys, n), 20, 3),
-            **bound(4 * (routed + keys.numel() + cols.shape[0] * n), routed),
+            max_abs_err=err,
+            ms=cuda_ms(lambda: segment_sum_cols(rows_b3, keys, n, perm=perm), 20, 3),
+            ms_queued=cuda_ms_queued(
+                lambda: segment_sum_cols(rows_b3, keys, n, perm=perm), 20, 3),
+            plain_ms=cuda_ms(lambda: segment_sum_cols_plain(rows_b3, keys, n, perm), 20, 3),
+            **bound(4 * (routed + 2 * n_live + keys.numel() + nf * n), routed),
             library_ms=cuda_ms(lambda: sink.index_add_(1, keys64, cols), 20, 3),
+            library_ms_queued=cuda_ms_queued(lambda: sink.index_add_(1, keys64, cols), 20, 3),
+            # Without perm, on the sorted payload (the reference's function;
+            # its bound without the perm entries).
+            ms_sorted=cuda_ms(lambda: segment_sum_cols(cols, keys, n), 20, 3),
+            ms_sorted_queued=cuda_ms_queued(lambda: segment_sum_cols(cols, keys, n), 20, 3),
+            bound_ms_sorted=bound(4 * (routed + keys.numel() + nf * n), routed)["bound_ms"],
+            shape=shape,
         ))
-        phase("B3", f"{cols.shape[0]} x {cols.shape[1]} sorted values -> {n} segments "
-              f"({int(live.sum())} live slots; longest segment {longest[1]}, "
-              f"{longest[0]} if the slots past the counts were routed too); "
-              f"within rtol 1e-5 of index_add_, two runs bitwise equal")
+        phase("B3", f"{nf} x {cols.shape[1]} values read through perm -> {n} segments "
+              f"({n_live} live slots; longest segment {longest[1]}, "
+              f"{longest[0]} if the slots past the counts were routed too); bit-equal to "
+              f"the plain version on the CPU, with and without perm; two runs bitwise equal; "
+              f"20 calls queued back to back: {kernels[-1]['ms_queued']:.4f} ms a call "
+              f"({kernels[-1]['ms_sorted_queued']:.4f} on the sorted payload), index_add_ "
+              f"{kernels[-1]['library_ms_queued']:.4f}")
+        windows, groups = -(-n // shape["threads"]), -(-nf // 3)  # groups of <= 3 fields
+        phase("B3", f"launch shape: {windows} windows of {shape['threads']} segments x "
+              f"{groups} field groups = {windows * groups} blocks of {shape['threads']} threads "
+              f"(a segment a thread), {shape['registers']} registers, "
+              f"{shape['local_bytes']} local bytes a thread, {shape['shared_bytes']} shared "
+              f"bytes a block, {shape['blocks_per_sm']} blocks per SM")
+        adj = adjoint_ms(slot_gids, counts, d_pdata, nf, n)
+        kernels[-1]["adjoint_ms"] = adj
+        phase("B3", f"the gather adjoint at the 3DGS step's shapes ({d_pdata.shape[0]} rows, "
+              f"{nf} routed): {adj['ms']:.4f} ms a call, {adj['ms_queued']:.4f} queued")
         for k in kernels:
             lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
             phase("time", f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
                   f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}")
         del proj, colors, pre, bins, pdata, out, got, want, resid, gout, d_pdata
-        del cols, seg, seg_want, sink, keys, keys64, perm, safe, live, slot_gids, edge, repeats
+        del cols, seg, sink, keys, keys64, perm, safe, live, slot_gids, edge, repeats, rows_b3
 
     # ---- 5. The main path, serving: render the trained scene on the "cuda" route
     counters = (segment_expand_offsets, segment_slice_gather, raster_tiles,

@@ -40,12 +40,11 @@ LIB_NAME = "libmojosplat_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_int64
 _F = ctypes.c_float
 # name -> argument types of the C entry point (pointers, ints, floats, and
 # the stream last); every entry point returns an int error code. A null
 # pointer is passed as None. The ``*_info`` entry points launch nothing and
-# take no stream: they report a kernel's launch shape (B2, B6/B7, B8) into a
+# take no stream: they report a kernel's launch shape (B2, B3, B6/B7, B8) into a
 # host int array (``launch_shape``).
 _SIGNATURES = {
     "expand_offsets_launch": (_P, _I, _I, _P, _I, _P),
@@ -54,7 +53,8 @@ _SIGNATURES = {
     "raster_bwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "raster_bwd_info": (_I, _I, _P),
     "raster_probe_launch": (_I, _I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
-    "segsum_launch": (_P, _I, _L, _P, _I, _P, _P),
+    "segsum_launch": (_P, _I, _I, _P, _P, _I, _P, _P),
+    "segsum_info": (_P,),
     "surfel_fwd_launch": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
     "surfel_fwd_info": (_I, _I, _I, _P),
     "surfel_fwd_check_launch": (_I, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
@@ -145,12 +145,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _entry(name: str):
+    """The C entry point ``name`` of the loaded library."""
+    return getattr(library(), name)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` with ``args`` and the current stream of
-    ``device`` (made the current device for the call); raise if the launch
-    status is not 0."""
-    with torch.cuda.device(device):
-        code = getattr(library(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``device``; raise if the launch status is not 0. ``device`` is made the
+    current device for the call only where another one is current."""
+    fn = _entry(name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # The stream's handle without building a torch.cuda.Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
@@ -162,7 +176,7 @@ def launch_shape(name: str, *args: int) -> dict:
     without clusters), resident blocks per SM and resident clusters on the
     card (blocks, without clusters)."""
     out = (ctypes.c_int * len(SHAPE_KEYS))()
-    code = getattr(library(), name)(*args, ctypes.cast(out, ctypes.c_void_p))
+    code = _entry(name)(*args, ctypes.cast(out, ctypes.c_void_p))
     if code != 0:
         raise RuntimeError(f"{name} failed with error {code}")
     return dict(zip(SHAPE_KEYS, list(out)))

@@ -12,6 +12,26 @@ static inline unsigned ms_blocks(int64_t n, int threads) {
     return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
+// upper_bound(x[a, b), s): the first index in [a, b) whose value exceeds s,
+// or b, for x non-decreasing. One whole warp calls it with the same
+// arguments; each round its 32 lanes probe 32 evenly spaced values and keep
+// the segment where they change from <= s to > s, so it takes log32(b - a)
+// dependent loads. B4 finds a block's owners with it, B3 a window's rows.
+// (An anonymous namespace, as where B4 first defined it.)
+namespace {
+__device__ int ms_warp_upper_bound(const int* __restrict__ x, int a, int b, int s, int lane) {
+    while (b - a > 32) {
+        const int step = (b - a + 31) / 32;
+        const int q = a + lane * step;
+        const int c = __popc(__ballot_sync(0xffffffffu, q < b && __ldg(x + q) <= s));
+        if (c == 0) return a;
+        b = min(a + c * step, b);
+        a += (c - 1) * step + 1;
+    }
+    return a + __popc(__ballot_sync(0xffffffffu, a + lane < b && __ldg(x + a + lane) <= s));
+}
+}  // namespace
+
 // Slots per chunk of the blend's backward residual: the forward (B1) saves
 // each pixel's transmittance at the entry of every kResidChunk-slot chunk,
 // and the backward (B2) replays one chunk at a time from it, saving the

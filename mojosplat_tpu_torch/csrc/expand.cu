@@ -42,24 +42,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPerThread = 8;                   // slots a thread: two runs of 4
 constexpr int kSlots = kThreads * kPerThread;  // slots a block
-constexpr unsigned kFull = 0xffffffffu;
-
-// upper_bound(offsets[a, b), s): the first index in [a, b) whose offset
-// exceeds s, or b. One whole warp calls it with the same arguments; each
-// round its 32 lanes probe 32 evenly spaced offsets and keep the segment
-// where they change from <= s to > s.
-__device__ int warp_upper_bound(const int* __restrict__ offsets, int a, int b, int s,
-                                int lane) {
-    while (b - a > 32) {
-        const int step = (b - a + 31) / 32;
-        const int q = a + lane * step;
-        const int c = __popc(__ballot_sync(kFull, q < b && __ldg(offsets + q) <= s));
-        if (c == 0) return a;
-        b = min(a + c * step, b);
-        a += (c - 1) * step + 1;
-    }
-    return a + __popc(__ballot_sync(kFull, a + lane < b && __ldg(offsets + a + lane) <= s));
-}
 
 // upper_bound(x[a, b), s) by one thread.
 __device__ __forceinline__ int thread_upper_bound(const int* x, int a, int b, int s) {
@@ -87,7 +69,8 @@ expand_offsets_kernel(const int* __restrict__ fields, int F, int N, int* __restr
     if (e > base) {
         const int warp = tid >> 5;
         if (warp < 2) {
-            const int w = warp_upper_bound(fields, 0, N, warp == 0 ? base : e - 1, tid & 31) - 1;
+            const int w =
+                ms_warp_upper_bound(fields, 0, N, warp == 0 ? base : e - 1, tid & 31) - 1;
             if ((tid & 31) == 0) owner[warp] = w;
         }
         __syncthreads();

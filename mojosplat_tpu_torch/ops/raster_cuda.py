@@ -6,12 +6,14 @@ Port of ``mojosplat_tpu.ops.raster_pallas``:
     opacity and cp = max(4, C) channels into a field-major (6 + cp, N)
     array and gathers the slot table's columns with ONE ``index_select``.
     Its adjoint (the reference's ``_gather_rows`` / ``_route_slot_grads``)
-    sorts the slot ids stably with the per-slot gradient rows as payload
-    and sums them per gaussian with kernel B3 (``segsum_cuda``); it never
-    falls back to ``index_select``'s own backward, an atomic ``index_add_``
-    on CUDA. With an ``absgrad_sink``, |d x| and |d y| of every slot ride
-    the same sort as two more columns, and their sums are the sink's
-    gradient (the reference's ``_gather_rows_abs``).
+    sorts the slot ids stably and sums the per-slot gradient rows per
+    gaussian with kernel B3 (``segsum_cuda``), which reads them in the
+    sorted order through the sort's permutation (the reference's sort
+    carries them as payload) and writes the sums into the packed gradient
+    itself; it never falls back to ``index_select``'s own backward, an
+    atomic ``index_add_`` on CUDA. With an ``absgrad_sink``, |d x| and |d y|
+    of every slot are two more columns of the same sum, and their sums are
+    the sink's gradient (the reference's ``_gather_rows_abs``).
   - ``raster_tiles`` blends each tile's first ``counts[t]`` slots front to
     back and returns (n_tiles, cp + 1, ts * ts), channel-major: the
     premultiplied channels, then the final transmittance. Differentiable
@@ -66,16 +68,23 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (keys,) = ctx.saved_tensors
         keys, perm = torch.sort(keys, stable=True)
-        f = ctx.nfields
-        cols = g[:f]
-        if ctx.needs_input_grad[4]:
-            cols = torch.cat([cols, g[0:2].abs()])
-        payload = cols.index_select(1, perm).contiguous()
-        summed = segment_sum_cols(payload, keys, ctx.n)
-        d_packed = torch.zeros((g.shape[0], ctx.n), dtype=g.dtype, device=g.device)
-        d_packed[:f] = summed[:f]
-        d_sink = summed[f:].T if ctx.needs_input_grad[4] else None
-        return d_packed, None, None, None, d_sink
+        f, n, rows = ctx.nfields, ctx.n, g.shape[0]
+        g = g.contiguous()
+        if not ctx.needs_input_grad[4]:
+            # B3 reads the slot columns in key order through perm and writes
+            # the f routed rows straight into d_packed; only the pad rows
+            # past them are zeroed.
+            d_packed = torch.empty((rows, n), dtype=g.dtype, device=g.device)
+            d_packed[f:].zero_()
+            segment_sum_cols(g[:f], keys, n, perm=perm, out=d_packed[:f])
+            return d_packed, None, None, None, None
+        # With the sink, |d x| and |d y| are two more payload columns, put
+        # first: rows [2, 2 + rows) of one buffer are then d_packed.
+        cols = torch.cat([g[0:2].abs(), g[:f]])
+        summed = torch.empty((2 + rows, n), dtype=g.dtype, device=g.device)
+        summed[2 + f:].zero_()
+        segment_sum_cols(cols, keys, n, perm=perm, out=summed[:2 + f])
+        return summed[2:], None, None, None, summed[:2].T
 
 
 def gather_slots(packed, slot_gids, counts, nfields: int, sink=None) -> torch.Tensor:

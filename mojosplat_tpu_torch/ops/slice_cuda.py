@@ -6,8 +6,10 @@ past the end of ``src`` giving 0, as the TPU version's zero padding does
 (and reads before its start giving 0 too, where the TPU version takes
 non-negative starts only).
 
-The wrapper runs the CUDA kernel (``csrc/slice.cu``) on a CUDA tensor and
-the plain PyTorch version below on a CPU tensor.
+The wrapper runs the CUDA kernel (``csrc/slice.cu``: a block per run of
+one tile's slots, 16-byte stores where ``cap % 4 == 0``; words copied bit
+for bit, so NaN payloads pass) on a CUDA tensor and the plain PyTorch
+version below on a CPU tensor. ``cap`` is any positive int.
 """
 
 from __future__ import annotations

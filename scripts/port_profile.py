@@ -25,6 +25,11 @@ weights. After 3 warm-up steps it prints
     ``key_averages()``'s device events by self device time) and the device
     busy time per step, their sum (one stream, so kernels do not overlap);
   - the idle share, 1 - busy / unprofiled step time;
+  - for ``train``, the device time per step of the slot gather's adjoint
+    (``raster_cuda._GatherRows.backward``) split by the operations it
+    calls: the sort, the payload's ``index_select`` where there is one,
+    the allocations and copies, and the kernels it launches itself
+    (B3);
 
 and, as its last line, the same numbers as one JSON object. It needs no
 network and no jax.
@@ -52,6 +57,36 @@ def device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def device_total_us(evt) -> float:
+    """Device time of a profiler event and of everything it called, in
+    microseconds."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def adjoint_split(prof, steps: int) -> dict:
+    """Device ms per step of the slot gather's adjoint, by the operations
+    it calls (the name of each child event of ``_GatherRowsBackward``) and
+    ``launched directly``: the kernels it launches outside any operation,
+    B3 through its ctypes entry point."""
+    split: dict[str, float] = {}
+    total = 0.0
+    for evt in prof.events():
+        if evt.name != "_GatherRowsBackward":
+            continue
+        total += device_total_us(evt)
+        rest = device_total_us(evt)
+        for child in evt.cpu_children:
+            us = device_total_us(child)
+            split[child.name] = split.get(child.name, 0.0) + us
+            rest -= us
+        split["launched directly"] = split.get("launched directly", 0.0) + rest
+    return dict(total_ms=total / 1e3 / steps,
+                parts_ms={k: v / 1e3 / steps for k, v in split.items() if v > 0})
 
 
 def main() -> int:
@@ -179,13 +214,18 @@ def main() -> int:
     print(f"{'device ms/step':>14} {'share':>7} {'calls/step':>10}  kernel")
     for name, ms, calls in rows[:30]:
         print(f"{ms:14.4f} {ms / busy_ms:7.2%} {calls:10.1f}  {name[:110]}")
+    adjoint = adjoint_split(prof, args.steps) if args.mode == "train" else None
+    if adjoint is not None:
+        print(f"gather adjoint per step {adjoint['total_ms']:.4f} ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in adjoint["parts_ms"].items()))
     print(json.dumps(dict(
         family=args.family, mode=args.mode, tight_cull=cfg.tight_cull,
         device=torch.cuda.get_device_name(0),
         nvidia_smi=smi,
         steps=args.steps, step_ms=step_ms, wall_ms=wall, profiled_step_ms=profiled_ms,
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / step_ms,
-        kernels=[dict(name=n, ms=m, calls=c) for n, m, c in rows[:30]])))
+        kernels=[dict(name=n, ms=m, calls=c) for n, m, c in rows[:30]],
+        gather_adjoint=adjoint)))
     return 0
 
 

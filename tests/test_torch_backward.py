@@ -4,9 +4,12 @@
     ``raster_tiles_pallas`` (interpret mode), and ``raster_tiles``'s
     autograd on CPU tensors against it;
 (b) ``segment_sum_cols_plain`` (B3's plain version) against
-    ``segment_sum_cols`` (interpret mode), with empty segments and dropped
-    keys;
-(c) the adjoint of ``gather_tile_data`` against the JAX gather's VJP;
+    ``segment_sum_cols`` (interpret mode) at 1, 9 and 18 fields, with empty
+    segments and dropped keys, also in its ``perm`` form against JAX on the
+    same columns permuted in numpy, and the wrapper's ``out`` rows;
+(c) the adjoint of ``gather_tile_data`` (with and without the absgrad
+    sink) and of ``gather_surfel_tile_data`` (16 and 18 rows) against the
+    JAX gathers' VJPs;
 (d) bitwise-equal gradients across two runs of the ``"cuda"`` route.
 
 Tolerance: gradients within rtol 5e-5 and atol 5e-6 x max|g| per row, the
@@ -25,11 +28,13 @@ from mojosplat_tpu import RenderConfig as JConfig
 from mojosplat_tpu.ops.raster_pallas import gather_tile_data as jgather
 from mojosplat_tpu.ops.raster_pallas import raster_tiles_pallas
 from mojosplat_tpu.ops.segsum_pallas import segment_sum_cols as jsegsum
+from mojosplat_tpu.ops.surfel_pallas import gather_surfel_tile_data as jgather_surfel
 from mojosplat_tpu_torch import Camera, RenderConfig, config_from_jax, render_gaussians
 from mojosplat_tpu_torch.convert import params_from_numpy
 from mojosplat_tpu_torch.ops.raster_cuda import (
     gather_tile_data, raster_tiles, raster_tiles_bwd, raster_tiles_bwd_plain)
 from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
+from mojosplat_tpu_torch.ops.surfel_cuda import gather_surfel_tile_data
 
 RTOL, ATOL = 5e-5, 5e-6
 
@@ -109,9 +114,13 @@ def test_blend_bwd_plain_tile_batch_and_autograd():
     assert_grad_close(whole.numpy(), pd.grad.numpy(), "autograd")
 
 
-def test_segment_sum_plain_matches_pallas_kernel():
+@pytest.mark.parametrize("F", [1, 9, 18])
+def test_segment_sum_plain_matches_pallas_kernel(F):
+    """F: one field, the 3DGS adjoint's 9 and the 2DGS adjoint's 18. The
+    ``perm`` form sums the columns in ``perm``'s order, as the reference's
+    sort hands the payload to its segment sum."""
     rng = np.random.default_rng(3)
-    M, S, F = 3000, 700, 5
+    M, S = 3000, 700
     # Sorted keys with empty segments and keys equal to and past S (dropped).
     keys = np.sort(np.concatenate([
         rng.choice(np.arange(0, S, 3), M - 60),
@@ -126,35 +135,73 @@ def test_segment_sum_plain_matches_pallas_kernel():
     assert torch.equal(segment_sum_cols(torch.from_numpy(cols), torch.from_numpy(keys), S),
                        got)
 
+    perm = rng.permutation(M)
+    unsorted = np.empty_like(cols)
+    unsorted[:, perm] = cols  # column perm[i] of ``unsorted`` is sorted row i
+    got_p = segment_sum_cols_plain(torch.from_numpy(unsorted), torch.from_numpy(keys), S,
+                                   perm=torch.from_numpy(perm))
+    assert torch.equal(got_p, got)
+    jperm = np.asarray(jsegsum(tuple(jnp.asarray(c) for c in unsorted[:, perm]),
+                               jnp.asarray(keys), S, interpret=True))
+    np.testing.assert_allclose(got_p.numpy(), jperm, rtol=1e-6, atol=1e-6)
+    out = torch.full((F + 2, S), 7.0)
+    res = segment_sum_cols(torch.from_numpy(unsorted), torch.from_numpy(keys), S,
+                           perm=torch.from_numpy(perm), out=out[1:F + 1])
+    assert res.data_ptr() == out[1].data_ptr()
+    assert torch.equal(out[1:F + 1], got)
+    assert bool((out[0] == 7.0).all() and (out[F + 1] == 7.0).all())
 
-def test_gather_adjoint_matches_jax_vjp():
+
+@pytest.mark.parametrize("case", ["3dgs", "3dgs-absgrad", "2dgs", "2dgs-maps"])
+def test_gather_adjoint_matches_jax_vjp(case):
     """The adjoint routes each slot's cotangent as the reference does, and
     drops it past each tile's count, where the reference routes only zeros
-    (the blend writes none there)."""
+    (the blend writes none there). The cases: the 3DGS gather (9 of 10 rows
+    routed), with the absgrad sink (two more columns, |d x| and |d y|), and
+    the surfel gather without and with the maps (15 of 16 rows, 18 of 18)."""
     rng = np.random.default_rng(5)
     n, n_tiles, cap, C = 40, 6, 50, 3
     M = n_tiles * cap
-    means2d = rng.normal(size=(n, 2)).astype(np.float32)
-    conics = rng.normal(size=(n, 3)).astype(np.float32)
-    colors = rng.normal(size=(n, C)).astype(np.float32)
-    opac = rng.uniform(size=n).astype(np.float32)
     ids = rng.integers(-1, n, M).astype(np.int32)  # -1: clamped padding ids
-    g = rng.normal(size=(6 + 4, M)).astype(np.float32)
     counts = np.array([0, 1, 17, 49, 50, 33], np.int32)
     live = (np.arange(cap)[None, :] < counts[:, None]).reshape(-1)
+    if case.startswith("3dgs"):
+        arrays = (rng.normal(size=(n, 2)), rng.normal(size=(n, 3)), rng.normal(size=(n, C)),
+                  rng.uniform(size=n))
+        rows = 6 + 4
+        sink = np.zeros((n, 2), np.float32) if case == "3dgs-absgrad" else None
 
-    def jfn(m, c, col, o):
-        return jgather(m, c, col, o, jnp.asarray(ids), interpret=True)
+        def jfn(*a):
+            return jgather(*a[:4], jnp.asarray(ids), interpret=True,
+                           absgrad_sink=None if sink is None else a[4])
 
-    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (means2d, conics, colors, opac)))
+        def tfn(*a):
+            return gather_tile_data(*a[:4], torch.from_numpy(ids), torch.from_numpy(counts),
+                                    absgrad_sink=None if sink is None else a[4])
+    else:
+        rows = 18 if case == "2dgs-maps" else 16
+        arrays = tuple(rng.normal(size=n) for _ in range(rows if rows == 18 else 15))
+        sink = None
+
+        def jfn(*a):
+            return jgather_surfel(a, jnp.asarray(ids), interpret=True)
+
+        def tfn(*a):
+            return gather_surfel_tile_data(a, torch.from_numpy(ids), torch.from_numpy(counts))
+    arrays = tuple(np.asarray(a, np.float32) for a in arrays) + (
+        () if sink is None else (sink,))
+    g = rng.normal(size=(rows, M)).astype(np.float32)
+
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, arrays))
     want = vjp(jnp.asarray(g * live))
-    ins = [torch.from_numpy(a).requires_grad_(True) for a in (means2d, conics, colors, opac)]
-    pdata = gather_tile_data(*ins, torch.from_numpy(ids), torch.from_numpy(counts))
-    assert pdata.shape == (10, M)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    pdata = tfn(*ins)
+    assert pdata.shape == (rows, M)
     pdata.backward(torch.from_numpy(g))
-    for got, w, name in zip(ins, want, ("means2d", "conics", "colors", "opacities")):
+    for i, (got, w) in enumerate(zip(ins, want)):
+        assert bool(got.grad.abs().sum() > 0), i
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), rtol=1e-6, atol=1e-5,
-                                   err_msg=name)
+                                   err_msg=f"{case} input {i}")
 
 
 def test_cuda_route_gradients_bitwise_deterministic():

@@ -12,9 +12,14 @@ f32 product against a chunked cumprod can flip a boundary slot). B2, whose
 per-slot gradients sum over a tile's pixels, is held per gradient row r
 with scale_r = max |plain_r|: within 1e-4 scale_r on all but 0.001% of
 values and within 1e-3 scale_r everywhere (the f32 sums over pixels run in
-other orders; a flip would move one pixel's share of a slot's sum). B3 agrees with index_add_ within rtol 1e-5
-(another order of f32 adds) and is bitwise equal to itself, as are the
-gradients of the packed gather. The surfel blend B6/B7 is held to B1's
+other orders; a flip would move one pixel's share of a slot's sum). B3 is
+bit-equal to index_add_ on CPU copies of its inputs (both add each segment
+in row order from 0), also with perm, into a larger buffer's rows, with
+windows of many rows, long segments at a window boundary, empty windows
+and no live key, at 1, 9 and 18 fields (one, three and six field groups); it runs in 256-thread
+blocks with no local memory; the packed and surfel gathers' gradients
+equal the CPU's bit for bit and each other across runs. B5 is exact at
+caps 1 to 4096, on NaN payloads compared as words. The surfel blend B6/B7 is held to B1's
 rule and its backward B8 to B2's, and B8 is bitwise equal to itself, also
 on edge slots (failed solves, the s2 clamp, opacities at the threshold,
 unapplied chunks, early stops) and runs in clusters of 4 blocks with no
@@ -49,11 +54,12 @@ from mojosplat_tpu_torch.ops.raster_cuda import (
     raster_tiles_fwd, raster_tiles_plain, raster_tiles_skips, row_may_apply_plain,
     skipped_pairs_plain)
 from mojosplat_tpu_torch.ops.raster_probe import VARIANTS, raster_variant, raster_variant_plain
-from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols, segment_sum_cols_plain
+from mojosplat_tpu_torch.ops.segsum_cuda import (
+    segment_sum_cols, segment_sum_cols_plain, segsum_shape)
 from mojosplat_tpu_torch.ops.slice_cuda import (
     segment_slice_gather, segment_slice_gather_plain)
 from mojosplat_tpu_torch.ops.surfel_cuda import (
-    raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
+    gather_surfel_tile_data, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
     raster_surfel_tiles_check, raster_surfel_tiles_fwd, raster_surfel_tiles_plain,
     surfel_bwd_shape, surfel_fwd_shape, surfel_row_may_apply_plain, surfel_skipped_pairs_plain,
     surfel_stop_plain)
@@ -270,14 +276,139 @@ def test_segment_sum_kernel_matches_plain(dev):
     cols = torch.from_numpy(rng.normal(size=(F, M)).astype(np.float32)).to(dev)
     keys = torch.from_numpy(keys).to(dev)
     got = segment_sum_cols(cols, keys, S)
-    want = segment_sum_cols_plain(cols, keys, S)
     torch.cuda.synchronize()
     assert got.shape == (F, S)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # Each segment in row order from 0: bit-equal to index_add_ on the CPU.
+    assert torch.equal(got.cpu(), segment_sum_cols_plain(cols.cpu(), keys.cpu(), S))
     assert torch.all(got[:, 1::3] == 0)  # empty segments
     assert torch.equal(segment_sum_cols(cols, keys, S), got)
     with pytest.raises(ValueError):  # keys must be int32
         segment_sum_cols(cols, keys.long(), S)
+
+
+def _segsum_keys(rng, S):
+    """Sorted keys over S segments: window 0 (segments 0-255) empty,
+    segments of 7,000 and 3,000 rows at either side of the boundary of
+    windows 1 and 2 (511, 512), then nothing up to 767; from 768 about 6
+    rows a segment, so that a window's rows are several times its 256
+    threads, with empty segments between; one segment of 5,000 rows in the
+    middle; the last 700 segments empty (whole empty windows of 256 at the
+    end); keys equal to and past S."""
+    body = rng.integers(768, S - 700, 6 * (S - 1468))
+    body = body[body % 5 != 0]  # empty segments
+    return np.sort(np.concatenate([
+        body, np.full(7000, 511), np.full(3000, 512), np.full(5000, S // 2),
+        np.full(900, S), np.full(300, S + 7)])).astype(np.int32)
+
+
+@pytest.mark.parametrize("F", [1, 9, 18])
+def test_segment_sum_kernel_bit_equal(dev, F):
+    """B3 against its plain version on CPU copies of the same inputs, bit for
+    bit: windows of many rows, segments of thousands of rows at a window
+    boundary, S not a multiple of the 256-segment window, empty windows,
+    every key >= S, no rows at all; with ``perm`` (the unsorted columns) and
+    into ``out``; F = 1, 9 and 18 are one, three and six field groups."""
+    rng = np.random.default_rng(40 + F)
+    S = 20_000 + 77
+    keys = _segsum_keys(rng, S)
+    M = keys.shape[0]
+    cols = torch.from_numpy(rng.normal(size=(F, M)).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(M))
+    want = segment_sum_cols_plain(cols, torch.from_numpy(keys), S)
+    kd, cd = torch.from_numpy(keys).to(dev), cols.to(dev)
+    got = segment_sum_cols(cd, kd, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(segment_sum_cols(cd, kd, S), got)
+    assert bool((got[:, :511] == 0).all() and (got[:, 513:768] == 0).all()
+                and (got[:, S - 700:] == 0).all())
+    # perm: sorted row i is column perm[i] of the unsorted columns.
+    unsorted = torch.empty_like(cols)
+    unsorted[:, perm] = cols
+    want_p = segment_sum_cols_plain(unsorted, torch.from_numpy(keys), S, perm=perm)
+    assert torch.equal(want_p, want)
+    got_p = segment_sum_cols(unsorted.to(dev), kd, S, perm=perm.to(dev))
+    assert torch.equal(got_p.cpu(), want)
+    # out: the first F rows of a larger buffer; the rows around it untouched.
+    buf = torch.full((F + 2, S), 3.0, device=dev)
+    res = segment_sum_cols(unsorted.to(dev), kd, S, perm=perm.to(dev), out=buf[1:F + 1])
+    assert res.data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1:F + 1], got)
+    assert bool((buf[0] == 3.0).all() and (buf[F + 1] == 3.0).all())
+    # Every key >= S, and no rows: all zeros.
+    high = torch.full((M,), S, dtype=torch.int32, device=dev)
+    high[M // 2:] = S + 1
+    assert torch.equal(segment_sum_cols(cd, high, S), torch.zeros((F, S), device=dev))
+    empty = segment_sum_cols(torch.zeros((F, 0), device=dev),
+                             torch.zeros((0,), dtype=torch.int32, device=dev), S)
+    assert torch.equal(empty, torch.zeros((F, S), device=dev))
+    with pytest.raises(ValueError):  # perm must be int64
+        segment_sum_cols(cd, kd, S, perm=perm.to(dev, torch.int32))
+    with pytest.raises(ValueError):  # out must have (F, S)
+        segment_sum_cols(cd, kd, S, out=buf[:F, :-1])
+
+
+def test_segment_sum_kernel_launch_shape(dev):
+    """B3: 256-thread blocks with no local memory, at least 4 resident an
+    SM."""
+    shape = segsum_shape()
+    assert shape["threads"] == 256 and shape["local_bytes"] == 0, shape
+    assert shape["blocks_per_sm"] >= 4, shape
+
+
+@pytest.mark.parametrize("cap", [1, 3, 64, 100, 512, 4096])
+def test_slice_kernel_caps(dev, cap):
+    """B5 bit for bit at caps on and off the 16-byte path, with starts that
+    are negative, unaligned, at M and past M; float32 payloads compared as
+    int32 words, NaNs with payload bits among them."""
+    rng = np.random.default_rng(cap)
+    M = 9_001
+    words = rng.integers(-2**31, 2**31 - 1, M, dtype=np.int64).astype(np.int32)
+    words[::7] = np.int32(0x7FC01234)  # NaNs with payload bits
+    words[::11] = np.int32(-0x3FFEDCC)  # negative NaNs
+    src_i = torch.from_numpy(words).to(dev)
+    starts = torch.tensor([-cap - 5, -3, 0, 1, 5, 127, 4001, M - cap, M - 3, M, M + 50],
+                          dtype=torch.int32, device=dev)
+    for src in (src_i, src_i.view(torch.float32)):
+        got = segment_slice_gather(src, starts, cap)
+        torch.cuda.synchronize()
+        assert got.dtype == src.dtype and got.shape == (starts.shape[0] * cap,)
+        want = segment_slice_gather_plain(src.cpu(), starts.cpu(), cap)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_adjoint_bit_equal_to_cpu(dev):
+    """The gather's adjoint on the card (the sort, B3 with perm into
+    d_packed, the sink's rows) gives the CPU's gradients bit for bit: both
+    add each gaussian's slots in slot order from 0. The 3DGS gather with and
+    without the absgrad sink, and the surfel gather with the maps."""
+    rng = np.random.default_rng(4)
+    n, n_tiles, cap = 20_000, 300, 500
+    m = n_tiles * cap
+    ids = rng.integers(-1, n, m).astype(np.int32)
+    counts = rng.integers(0, cap + 1, n_tiles).astype(np.int32)
+    base3 = [rng.normal(size=s).astype(np.float32) for s in ((n, 2), (n, 3), (n, 3), (n,))]
+    base2 = [rng.normal(size=n).astype(np.float32) for _ in range(18)]
+    g3 = rng.normal(size=(10, m)).astype(np.float32)
+    g2 = rng.normal(size=(18, m)).astype(np.float32)
+
+    def grads(device, family, sink):
+        t = [torch.from_numpy(b).to(device).requires_grad_(True)
+             for b in (base3 if family == 3 else base2)]
+        i, c = torch.from_numpy(ids).to(device), torch.from_numpy(counts).to(device)
+        s = torch.zeros((n, 2), device=device, requires_grad=True) if sink else None
+        if family == 3:
+            out = gather_tile_data(*t, i, c, absgrad_sink=s)
+            out.backward(torch.from_numpy(g3).to(device))
+        else:
+            out = gather_surfel_tile_data(t, i, c)
+            out.backward(torch.from_numpy(g2).to(device))
+        return [x.grad.cpu() for x in t] + ([s.grad.cpu()] if sink else [])
+
+    for family, sink in ((3, False), (3, True), (2, False)):
+        got, want = grads(dev, family, sink), grads("cpu", family, sink)
+        for k, (x, y) in enumerate(zip(got, want)):
+            assert torch.equal(x, y), (family, sink, k)
 
 
 def test_gather_adjoint_is_deterministic(dev):
