@@ -123,6 +123,33 @@ exits nonzero without printing the final result line:
      and the MCMC loss's gradients must each repeat bit for bit from one
      state and generator state (and the line says how many draws
      torch.multinomial moves between two such runs).
+ 14. The camera models (the phase 14 constants below), on the trained scene at
+     1920x1080, preset 6 with tight_cull, the "cuda" route: renders through
+     the pinhole in EWA and in UT mode, the fisheye, the rolling-shutter
+     pinhole and the ortho camera, each with its median time of 10, drop
+     counters, launches of B1-B5 (B4, B5, B1 and no other) and peak memory,
+     held to the "torch" route by the B1 rule with equal counters; ten Adam
+     steps of the perturbed gaussians and a learnable (6,) pose delta
+     (apply_pose_delta) on the rolling-shutter fisheye started off by
+     POSE_ERROR: a finite, falling loss, the median step time and peak
+     memory, B1-B5 launched in a step, bitwise-equal gradients of the
+     gaussians and the delta from two backward passes, and both routes'
+     gradients, the delta's among them, by the B2 rule at a quarter of the
+     resolution and of the gaussians; ortho disks without the maps: B6 and
+     B8 (aux=False) on the ortho records against their plain versions (B1
+     and B2 rules), B6's row skip bit-equal to the full walk with its
+     count the mirror's and no kept pair skipped (brute force), B8 bitwise
+     repeatable, their times; the render on both routes by the route rule
+     (B4, B5 and B6 launched), its time; the backward of a seeded cotangent
+     at a quarter of the size (B3-B6 and B8 launched), the "cuda" route's
+     gradients against the "torch" route's in float64 by the route rule
+     (disks ~1.5 px across there, so one pixel's threshold flip in f32
+     moves a disk's gradient by up to a few percent of the row's largest;
+     the f32 "torch" route's distance from float64 is printed beside it);
+     the fisheye, and ortho with the maps, raising
+     NotImplementedError on the "cuda" route; the fisheye's maps on the
+     "torch" route at a reduced size (FISHEYE_DISK_STRIDE, a quarter of the
+     resolution).
 
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
@@ -135,18 +162,21 @@ than ROUTE_GRAD_MAX_REL of it.
 
 The line before the last is a JSON object with each kernel's launches in
 one training step of its path (B6: in the render without maps; B9: in the
-probe's run, one entry per variant), its max abs error against the plain
-version, its times and its bound (for B6-B8, as for B1 and B2, counting
-the per-pair work only on the walked pairs whose (pixel row, slot) pair the
-row test keeps, plus the row tests; B9 keeps B1's full-walk bound at the
-probe's shapes). The last line is
+probe's run, one entry per variant; launches_cameras: in one pose step of
+phase 14 for B1-B5, in the ortho disks' backward for B6 and B8), its max
+abs error against the plain version, its times and its bound (for B6-B8,
+as for B1 and B2, counting the per-pair work only on the walked pairs
+whose (pixel row, slot) pair the row test keeps, plus the row tests; B9
+keeps B1's full-walk bound at the probe's shapes). The last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -196,6 +226,11 @@ B1_OPS_PER_PAIR, B2_OPS_PER_PAIR = 25, 65
 # with its two divisions (24), the depth chain (12) and the 18 rows' pixel
 # sums (18).
 B6_OPS_PER_PAIR, B7_OPS_PER_PAIR, B8_OPS_PER_PAIR = 48, 60, 132
+# B8's variant without the maps (phase 14's ortho disks) has no moments
+# and no depth chain: the replay (~48), d alpha and the carry (6), cv over 3
+# channels (8), the branch and filter terms (8), the solve's adjoint (24)
+# and the 16 rows' pixel sums (16).
+B8_PLAIN_OPS_PER_PAIR = 110
 # A blend needs the per-pair work only where some pixel of the row may
 # keep the slot: the row tests (ms_row_may_apply, ms_surfel_row_may_apply)
 # prove the rest unkept at a cost per (pixel row, slot) pair, so a bound
@@ -253,6 +288,22 @@ ADC_STEPS, ADC_EVERY, MCMC_STEPS, MCMC_EVERY = 500, 100, 100, 50
 # units; the scene extent is 1.1 x the evaluation view's orbit radius (the
 # reference recipe's camera extent).
 DENSIFY_QUANTILE, SCENE_EXTENT = 0.99, 1.1 * 3.9
+
+# Phase 14, the camera models at the trained scene's view: a fisheye of a
+# 60 degree half-width (fx = fy = 960 / (pi / 3) at 1920 wide) with the
+# coefficients of tests/test_camera_models.py, the rolling-shutter velocity
+# of tests/test_rolling_shutter.py, and an ortho camera whose fx makes the
+# spread of the centres' camera-frame x between its 1st and 99th
+# percentiles fill ORTHO_FILL of the width. The pose refinement starts the
+# rolling fisheye off by POSE_ERROR (a few pixels at its focal length) and
+# learns a (6,) delta at examples/train_colmap.py's --pose-lr beside the
+# gaussians. The fisheye disks with the maps render on the "torch" route
+# only, at every FISHEYE_DISK_STRIDE-th disk and 1/4 of the resolution.
+FISHEYE_K = (0.08, -0.01, 0.002, -0.0005)
+RS_VEL = (0.05, 0.08, 0.02, 0.1, -0.05, 0.2)
+ORTHO_FILL = 0.9
+POSE_ERROR, POSE_LR = (2e-3, -1.5e-3, 1e-3, 4e-3, -3e-3, 2e-3), 1e-4
+FISHEYE_DISK_STRIDE = 16
 
 
 def phase(name: str, msg: str) -> None:
@@ -1176,6 +1227,353 @@ def densify_phase(raw: dict, sh_degree: int, counters: dict) -> dict:
     return launched
 
 
+def camera_phase(raw: dict, sh_degree: int, counters: dict, kernels: list, smi: str) -> dict:
+    """Phase 14: the camera models on the trained scene at H x W, preset 6
+    with tight_cull, on the "cuda" route. Renders the pinhole (EWA and UT),
+    the fisheye, the rolling-shutter pinhole and the ortho camera, each
+    against the "torch" route; trains ten Adam steps of the gaussians and a
+    pose delta on the rolling fisheye; and renders ortho disks without the
+    maps through B6 and B8. Returns the launches of B1-B5 in one pose step
+    and of B6 and B8 on the ortho disks' path (counters: name -> wrapper
+    of B4, B5, B1, B2, B3, B9)."""
+    from mojosplat_tpu_torch import (
+        Camera, RenderConfig, apply_pose_delta, render_gaussians, render_surfels)
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.ops.binning import num_tiles
+    from mojosplat_tpu_torch.ops.sh import sh_to_color
+    from mojosplat_tpu_torch.ops.surfel_cuda import (
+        raster_surfel_tiles, raster_surfel_tiles_bwd, raster_surfel_tiles_bwd_plain,
+        raster_surfel_tiles_fwd, raster_surfel_tiles_plain)
+    from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles
+    from mojosplat_tpu_torch.train import activate, l2_image_loss
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+
+    dev = torch.device("cuda", 0)
+    cfg_cuda = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    cfg_torch = RenderConfig(raster_impl="torch", tile_batch=256, **SCENE_BUDGETS)
+    cfg_plain = RenderConfig(raster_impl="cuda", tile_batch=128, **SCENE_BUDGETS)
+    ut = dict(projection_mode="ut")
+    raw_dev = params_from_numpy(raw, dev)
+    params = activate(raw_dev)
+    base = scene_camera(H, W, device=dev)
+    with torch.no_grad():
+        xc = params["means3d"] @ base.R.T + base.T
+        lo, hi = (float(v) for v in torch.quantile(
+            xc[:, 0], torch.tensor([0.01, 0.99], device=dev)))
+        mid_y = float(torch.median(xc[:, 1]))
+        del xc
+    ortho_f = ORTHO_FILL * W / (hi - lo)
+
+    def cameras(h, w):
+        """The scene camera's pose with each camera model at h x w (the
+        focal lengths scale with w)."""
+        s = w / W
+        pose = dict(R=base.R, T=base.T, H=h, W=w, device=dev)
+        pin = dict(fx=base.fx * s, fy=base.fy * s, cx=w / 2, cy=h / 2)
+        fish = dict(fx=(w / 2) / (math.pi / 3), fy=(w / 2) / (math.pi / 3), cx=w / 2,
+                    cy=h / 2, camera_model="fisheye", dist=FISHEYE_K + (0.0,))
+        return {
+            "pinhole": Camera.create(**pose, **pin),
+            "fisheye": Camera.create(**pose, **fish),
+            "rolling": Camera.create(**pose, **pin, shutter="rolling", rs_vel=RS_VEL),
+            "ortho": Camera.create(**pose, fx=ortho_f * s, fy=ortho_f * s,
+                                   cx=w / 2 - ortho_f * s * (lo + hi) / 2,
+                                   cy=h / 2 - ortho_f * s * mid_y, camera_model="ortho"),
+            "rolling fisheye": Camera.create(**pose, **fish, shutter="rolling", rs_vel=RS_VEL),
+        }
+
+    cams = cameras(H, W)
+    phase("cameras", f"{smi}; {H}x{W}, preset 6 with tight_cull; fisheye fx = fy = "
+          f"{float(cams['fisheye'].fx):.3f} (60 degrees at the edge), k = {FISHEYE_K}; rolling "
+          f"shutter rs_vel = {RS_VEL}; ortho fx = fy = {ortho_f:.3f} px per world unit (the "
+          f"centres' x spread {hi - lo:.4f} between its 1st and 99th percentiles fills "
+          f"{ORTHO_FILL} of the width)")
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        raster_surfel_tiles_fwd.launches = raster_surfel_tiles_fwd.launches_maps = 0
+        raster_surfel_tiles_bwd.launches = 0
+
+    def read():
+        out = {k: fn.launches for k, fn in counters.items()}
+        out["B6"] = raster_surfel_tiles_fwd.launches
+        out["B7"] = raster_surfel_tiles_fwd.launches_maps
+        out["B8"] = raster_surfel_tiles_bwd.launches
+        return out
+
+    def expect(what, launched, needed, silent):
+        if min(launched[k] for k in needed) < 1 or max(launched[k] for k in silent):
+            raise AssertionError(f"{what}: launches {launched}; expected {needed} and none "
+                                 f"of {silent}")
+
+    def render(p, camera, config, background=BACKGROUND, **kw):
+        return render_gaussians(*(p[k] for k in KEYS), camera, sh_degree=sh_degree,
+                                background_color=background, config=config, **kw)
+
+    # The renders, each against the "torch" route.
+    with torch.no_grad():
+        for name, cam_name, extra in (("pinhole EWA", "pinhole", {}), ("pinhole UT", "pinhole", ut),
+                                      ("fisheye", "fisheye", {}), ("rolling", "rolling", {}),
+                                      ("ortho", "ortho", {})):
+            camera = cams[cam_name]
+            config = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS, **extra)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset()
+            image, aux = render(params, camera, config, return_aux=True)
+            torch.cuda.synchronize()
+            launched, peak = read(), torch.cuda.max_memory_allocated(dev)
+            expect(f"cameras {name}", launched, ("B4", "B5", "B1"),
+                   ("B2", "B3", "B9", "B6", "B7", "B8"))
+            if image.shape != (H, W, 3) or not bool(torch.isfinite(image).all()):
+                raise AssertionError(f"cameras {name}: bad image or non-finite")
+            counts_cuda = drop_counters(aux)
+            config_t = dataclasses.replace(config, raster_impl="torch", tile_batch=256)
+            image_t, aux_t = render(params, camera, config_t, return_aux=True)
+            if drop_counters(aux_t) != counts_cuda:
+                raise AssertionError(f"cameras {name}: route counters differ: "
+                                     f"{drop_counters(aux_t)} vs {counts_cuda}")
+            err = blend_agreement(f"cameras {name} vs torch route", image, image_t)
+            del image_t, aux_t
+            ms = cuda_ms(lambda: render(params, camera, config), 10, 1)
+            phase("cameras", f"{name}: median of 10 {ms:.3f} ms ({H * W / (ms / 1e3):.1f} "
+                  f"pixels/s); launches B4 {launched['B4']}, B5 {launched['B5']}, B1 "
+                  f"{launched['B1']}, B2 {launched['B2']}, B3 {launched['B3']}; counters "
+                  f"{json.dumps(counts_cuda)}; peak memory {peak} bytes; max abs diff from "
+                  f"the torch route {err:.3e}; image mean {float(image.mean()):.5f}")
+        del image, aux
+
+    # Pose refinement: the gaussians and a (6,) pose delta, ten Adam steps.
+    cam_true = cams["rolling fisheye"]
+    error = torch.tensor(POSE_ERROR, device=dev)
+    with torch.no_grad():
+        target = render(params, cam_true, cfg_cuda, background=None)
+    cam_bad = apply_pose_delta(cam_true, error)
+    leaves = perturbed_leaves(raw, dev)
+    delta = torch.zeros(6, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([{"params": list(leaves.values()), "lr": TRAIN_LR},
+                            {"params": [delta], "lr": POSE_LR}])
+
+    def pose_loss(p, d, camera, config, tgt):
+        return l2_image_loss(render(activate(p), apply_pose_delta(camera, d), config,
+                                    background=None), tgt)
+
+    def pose_step():
+        opt.zero_grad(set_to_none=True)
+        loss = pose_loss(leaves, delta, cam_bad, cfg_cuda, target)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    phase("cameras-pose", f"the rolling fisheye started off by {POSE_ERROR}; Adam lr "
+          f"{TRAIN_LR} on the perturbed gaussians (as phase 7), {POSE_LR} on the pose delta; "
+          f"target: the cuda-route render through the true camera")
+    losses, step_ms, launched_pose, peak_pose = train_steps(pose_step, reset, read, dev)
+    with torch.no_grad():
+        final = float(pose_loss(leaves, delta, cam_bad, cfg_cuda, target))
+    med = statistics.median(step_ms)
+    phase("cameras-pose", "loss per step " + ", ".join(f"{x:.6e}" for x in losses)
+          + f"; after step {TRAIN_STEPS}: {final:.6e}; delta "
+          + ", ".join(f"{float(x):.3e}" for x in delta.detach()))
+    phase("cameras-pose", f"step time median of {TRAIN_STEPS} {med:.3f} ms (steps "
+          + ", ".join(f"{x:.3f}" for x in step_ms) + f"), {1e3 / med:.3f} steps/s; peak memory "
+          f"of one step {peak_pose} bytes; launches during one step {json.dumps(launched_pose)}")
+    if not all(np.isfinite(losses)) or not np.isfinite(final) or not final < losses[0]:
+        raise AssertionError("cameras-pose: the loss is not finite or did not fall")
+    expect("cameras-pose", launched_pose, ("B4", "B5", "B1", "B2", "B3"),
+           ("B9", "B6", "B7", "B8"))
+
+    def pose_grads(p, d, camera, config, tgt):
+        for t in list(p.values()) + [d]:
+            t.grad = None
+        pose_loss(p, d, camera, config, tgt).backward()
+        grads = {k: t.grad.clone() for k, t in p.items()}
+        grads["pose"] = d.grad.clone()
+        return grads
+
+    check_bitwise(lambda: pose_grads(leaves, delta, cam_bad, cfg_cuda, target), "cameras-pose")
+    del opt, target
+    # Both routes at a quarter of the resolution and every 4th gaussian.
+    small = {k: v.detach()[::4].contiguous() for k, v in leaves.items()}
+    cams_s = cameras(H // 4, W // 4)
+    cam_bad_s = apply_pose_delta(cams_s["rolling fisheye"], error)
+    with torch.no_grad():
+        target_s = render(activate({k: v[::4] for k, v in raw_dev.items()}),
+                          cams_s["rolling fisheye"], cfg_cuda, background=None)
+    routes = {}
+    for name, config in (("cuda", cfg_cuda), ("torch", cfg_torch)):
+        p = {k: v.clone().requires_grad_(True) for k, v in small.items()}
+        d = delta.detach().clone().requires_grad_(True)
+        routes[name] = pose_grads(p, d, cam_bad_s, config, target_s)
+    for k in routes["cuda"]:
+        grad_agreement(f"cameras-pose d {k} cuda vs torch route ({small['means3d'].shape[0]} "
+                       f"gaussians, {H // 4}x{W // 4})", routes["cuda"][k][None],
+                       routes["torch"][k][None])
+    del routes, small, leaves, target_s
+
+    # Ortho disks without the maps: B6 and B8 (aux=False) on ortho records.
+    disks = params_from_numpy(dict(raw, scales=np.ascontiguousarray(raw["scales"][:, :2])), dev)
+    dparams = activate(disks)
+    cam_o = cams["ortho"]
+    geometry = [dparams[k] for k in ("means3d", "scales", "quats", "opacities")]
+    ts = cfg_cuda.tile_size
+    th, tw = num_tiles(H, W, ts)
+    n_tiles, P = th * tw, ts * ts
+    with torch.no_grad():
+        bins = bin_surfels(*geometry, cam_o, cfg_cuda)
+        colors = sh_to_color(dparams["features"], dparams["means3d"], cam_o.position, sh_degree)
+        pdata, counts = pack_surfel_tiles(*geometry, colors, cam_o, bins, cfg_cuda, False)
+        if not bool((pdata[5] == 0).all() and (pdata[8] == 0).all()):
+            raise AssertionError("cameras-2dgs: the ortho records' a2, b2 rows are not 0")
+        b6 = raster_surfel_tiles(pdata, counts, ts, tw, cfg_cuda, False)
+        ref = raster_surfel_tiles_plain(pdata, counts, ts, tw, cfg_plain, False)
+        err6 = blend_agreement("cameras-2dgs B6 (ortho)", b6, ref, row_scale(ref, (0, 2)))
+        b6_r, resid = raster_surfel_tiles_fwd(pdata, counts, ts, tw, cfg_cuda, False, True)
+        if not torch.equal(b6_r, b6):
+            raise AssertionError("cameras-2dgs B6: the output changes when the residual is "
+                                 "written")
+        skips = surfel_skip_counts(pdata, counts, ts, tw, cfg_cuda, False, b6, resid)
+        phase("cameras-2dgs", f"B6 on the ortho records: pdata {tuple(pdata.shape)}, "
+              f"{int(counts.sum())} slots; row test skipped {skips['skipped']} of the "
+              f"{skips['tested']} (pixel row, slot) pairs its warps tested, equal to the plain "
+              f"mirror's count; output and residual bit-equal to the full walk's; of the "
+              f"{skips['row_slots']} (row, slot) pairs below the counts no pixel keeps "
+              f"{skips['row_slots_unkept']} and the row test skips {skips['row_slots_skipped']}, "
+              f"none kept (brute force)")
+        gout = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (n_tiles, 5, P), dtype=np.float32)).to(dev)
+        d_pdata = raster_surfel_tiles_bwd(pdata, counts, gout, resid, ts, tw, cfg_cuda, False)
+        d_want = raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg_plain, False)
+        err8 = grad_agreement("cameras-2dgs B8 (ortho, without maps)", d_pdata, d_want)
+        if not torch.equal(raster_surfel_tiles_bwd(pdata, counts, gout, resid, ts, tw, cfg_cuda,
+                                                   False), d_pdata):
+            raise AssertionError("cameras-2dgs B8: two runs differ")
+        # The bounds as phase 9 counts them, on these records.
+        rows, slots, need = pdata.shape[0], int(counts.sum()), skips["walked_may"]
+        walked = torch.minimum(resid[1], counts[:, None])
+        chunk_reads = int(((walked + 15) // 16).sum())
+        row_tests = SURFEL_ROW_TEST_OPS * skips["tested"]
+        row_sfu = SURFEL_ROW_TEST_SFU * skips["tested"]
+        ortho_k = {
+            "B6": dict(
+                max_abs_err=err6, skips=skips,
+                ms=cuda_ms(lambda: raster_surfel_tiles(pdata, counts, ts, tw, cfg_cuda, False),
+                           20, 3),
+                plain_ms=cuda_ms(lambda: raster_surfel_tiles_plain(
+                    pdata, counts, ts, tw, cfg_plain, False), 3, 1),
+                **bound(4 * (rows * slots + n_tiles + b6.numel()),
+                        B6_OPS_PER_PAIR * need + row_tests, 2 * need + row_sfu)),
+            "B8": dict(
+                max_abs_err=err8,
+                ms=cuda_ms(lambda: raster_surfel_tiles_bwd(
+                    pdata, counts, gout, resid, ts, tw, cfg_cuda, False), 20, 3),
+                plain_ms=cuda_ms(lambda: raster_surfel_tiles_bwd_plain(
+                    pdata, counts, gout, ts, tw, cfg_plain, False), 3, 1),
+                **bound(4 * (rows * slots + gout.numel() + chunk_reads + resid[1].numel()
+                             + n_tiles + d_pdata.numel()),
+                        B8_PLAIN_OPS_PER_PAIR * need + row_tests, 2 * need + row_sfu)),
+        }
+        phase("cameras-2dgs", "ortho records: " + ", ".join(
+            f"{kid} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} ms, "
+            f"{k['bound_by']})" for kid, k in ortho_k.items())
+            + "; kernels median of 20, plain of 3; B8 two runs bitwise equal")
+        del bins, colors, pdata, counts, b6, ref, b6_r, resid, gout, d_pdata, d_want, walked
+
+        # The render on both routes at full size.
+        def render_disks(p, camera, config, **kw):
+            return render_surfels(*(p[k] for k in KEYS), camera, sh_degree=sh_degree,
+                                  background_color=BACKGROUND, config=config, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        img, aux = render_disks(dparams, cam_o, cfg_cuda, return_aux=True)
+        torch.cuda.synchronize()
+        launched_render, peak = read(), torch.cuda.max_memory_allocated(dev)
+        expect("cameras-2dgs render", launched_render, ("B4", "B5", "B6"),
+               ("B7", "B8", "B1", "B2", "B3"))
+        img_t, aux_t = render_disks(dparams, cam_o, cfg_torch, return_aux=True)
+        if drop_counters(aux_t) != drop_counters(aux):
+            raise AssertionError("cameras-2dgs: route counters differ")
+        for name, a, b in (("image", img, img_t), ("final T", aux.raster.final_transmittance,
+                                                    aux_t.raster.final_transmittance)):
+            blend_agreement(f"cameras-2dgs ortho {name} vs torch route", a, b,
+                            row_scale(b, (0, 1)), ROUTE_MAX_SHARE, ROUTE_MAX_ERR)
+        del img_t, aux_t
+        ms_disks = cuda_ms(lambda: render_disks(dparams, cam_o, cfg_cuda), 10, 1)
+        phase("cameras-2dgs", f"ortho disks without maps: median of 10 {ms_disks:.3f} ms "
+              f"({H * W / (ms_disks / 1e3):.1f} pixels/s); launches {json.dumps(launched_render)};"
+              f" counters {json.dumps(drop_counters(aux))}; peak memory {peak} bytes")
+        del img, aux
+        # The "cuda" route raises where the reference's "pallas" route does.
+        for what, camera, maps in (("fisheye", cams["fisheye"], False),
+                                   ("ortho with the maps", cam_o, True)):
+            try:
+                render_disks(dparams, camera, cfg_cuda, return_depth=maps)
+            except NotImplementedError:
+                phase("cameras-2dgs", f"{what} on the cuda route: NotImplementedError, as the "
+                      f"reference's pallas route")
+            else:
+                raise AssertionError(f"cameras-2dgs: {what} rendered on the cuda route")
+        # The fisheye with the maps on the "torch" route, reduced.
+        few = {k: v[::FISHEYE_DISK_STRIDE] for k, v in dparams.items()}
+        fish_s = cameras(H // 4, W // 4)["fisheye"]
+        outs = render_disks(few, fish_s, dataclasses.replace(cfg_torch, tile_batch=None),
+                            return_depth=True, return_normals=True, return_distortion=True)
+        if not all(bool(torch.isfinite(x).all()) for x in outs):
+            raise AssertionError("cameras-2dgs: the fisheye's maps are not finite")
+        phase("cameras-2dgs", f"fisheye with the maps on the torch route (reduced: every "
+              f"{FISHEYE_DISK_STRIDE}th disk, {H // 4}x{W // 4}): finite; image mean "
+              f"{float(outs[0].mean()):.5f}, depth max {float(outs[1].max()):.4f}")
+        del few, outs
+
+    # The backward of a seeded cotangent, both routes, a quarter of the size.
+    # The "cuda" route is held to the "torch" route in float64: ortho disks
+    # a quarter of the resolution are about 1.5 px across, so one pixel that
+    # f32 rounding flips at a threshold moves a disk's gradient by up to a
+    # few percent of the row's largest, in either f32 route.
+    small = {k: v.detach()[::4].contiguous() for k, v in disks.items()}
+    cot = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (H // 4, W // 4, 3), dtype=np.float32)).to(dev)
+    routes = {}
+    for name, config, dtype in (("cuda", cfg_cuda, torch.float32),
+                                ("torch", cfg_torch, torch.float32),
+                                ("float64", cfg_torch, torch.float64)):
+        p = {k: v.to(dtype).clone().requires_grad_(True) for k, v in small.items()}
+        camera = dataclasses.replace(cams_s["ortho"], **{
+            f.name: getattr(cams_s["ortho"], f.name).to(dtype)
+            for f in dataclasses.fields(cams_s["ortho"])
+            if isinstance(getattr(cams_s["ortho"], f.name), torch.Tensor)})
+        reset()
+        (render_disks(activate(p), camera, config) * cot.to(dtype)).sum().backward()
+        torch.cuda.synchronize()
+        if name == "cuda":
+            launched_bwd = read()
+            expect("cameras-2dgs backward", launched_bwd, ("B3", "B4", "B5", "B6", "B8"),
+                   ("B7", "B1", "B2"))
+        routes[name] = {k: t.grad for k, t in p.items()}
+    for k in routes["cuda"]:
+        exact = routes["float64"][k]
+        own = float(((routes["torch"][k].double() - exact).abs().max()
+                     / (exact.abs().max() + 1e-30)))
+        grad_agreement(f"cameras-2dgs ortho d {k} cuda route vs torch route in float64 "
+                       f"({small['means3d'].shape[0]} disks, {H // 4}x{W // 4}; the f32 torch "
+                       f"route's own distance from float64 {own:.3e} of the scale)",
+                       routes["cuda"][k][None].double(), exact[None],
+                       ROUTE_GRAD_MAX_SHARE, ROUTE_GRAD_MAX_REL)
+    phase("cameras-2dgs", f"launches during the ortho disks' backward {json.dumps(launched_bwd)}")
+    del routes, small, disks, dparams
+
+    for k in kernels:
+        kid = k["name"][:2]
+        if kid in ortho_k:
+            k["ortho_without_maps"] = ortho_k[kid]
+    launches = {kid: launched_pose[kid] for kid in ("B1", "B2", "B3", "B4", "B5")}
+    launches.update(B6=launched_bwd["B6"], B8=launched_bwd["B8"])
+    return launches
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -1638,8 +2036,14 @@ def main() -> int:
     launches_densify = densify_phase(raw, sh_degree, dict(zip(
         ("B4", "B5", "B1", "B2", "B3", "B9"), counters)))
 
+    # ---- 14. The camera models
+    launches_cameras = camera_phase(raw, sh_degree, dict(zip(
+        ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), kernels, smi)
+
     for k in kernels:
         kid = k["name"][:2]
+        if kid in launches_cameras:
+            k["launches_cameras"] = launches_cameras[kid]
         if kid in ("B4", "B5", "B1", "B2", "B3"):
             k["launches"] = launches_train[["B4", "B5", "B1", "B2", "B3"].index(kid)]
         if kid in ("B4", "B5", "B1"):

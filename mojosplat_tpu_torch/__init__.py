@@ -11,20 +11,23 @@ routes, forward and backward: the 3DGS render with SH colours
 its ``train.train_step`` and ``train.train_step_with_densify_stats``; ADC
 and MCMC density control (``densify``); the 2DGS surfel render with depth,
 normal and distortion maps (``render_surfels``) and its
-``train.train_step_surfel``. Kernels: B1/B2 (3DGS tile blend and its
-backward), B3 (segment sum), B4 (slot expansion), B5 (per-tile slot slice),
-B6/B7 (surfel tile blend, without and with the maps), B8 (their backward)
-and B9 (the blend-variant probe, ``ops.raster_probe``). Importing this
-package never imports jax.
+``train.train_step_surfel``; the pinhole (with lens distortion), fisheye
+and orthographic cameras, the rolling shutter, the unscented projection and
+pose refinement (``apply_pose_delta``) in both families. Kernels: B1/B2
+(3DGS tile blend and its backward), B3 (segment sum), B4 (slot
+expansion), B5 (per-tile slot slice), B6/B7 (surfel tile blend, without
+and with the maps), B8 (their backward) and B9 (the blend-variant probe,
+``ops.raster_probe``). Importing this package never imports jax.
 """
 
-from .camera import Camera, look_at
+from .camera import Camera, apply_pose_delta, look_at
 from .config import DEFAULT_CONFIG, RenderConfig, config_from_jax
 from .render import RenderAux, render_gaussians
 from .surfel import render_surfels
 
 __all__ = [
     "Camera",
+    "apply_pose_delta",
     "look_at",
     "RenderConfig",
     "DEFAULT_CONFIG",

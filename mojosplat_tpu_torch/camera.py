@@ -1,13 +1,29 @@
-"""Pinhole camera with a global shutter (PyTorch).
+"""Camera models (PyTorch).
 
 Counterpart of ``mojosplat_tpu.camera``: world-to-camera rotation ``R``
-(3, 3), translation ``T`` (3,), image size ``H, W`` as Python ints, pinhole
+(3, 3), translation ``T`` (3,), image size ``H, W`` as Python ints,
 intrinsics ``fx, fy, cx, cy`` and ``near`` / ``far`` planes, all other
 fields tensors on one device. Leading batch dimensions on the tensor fields
 are allowed, as in the reference package.
 
-Only the pinhole lens with a global shutter is ported; ``create`` raises
-``NotImplementedError`` for fisheye, ortho and rolling-shutter cameras.
+``camera_model`` selects the lens map:
+  - ``"pinhole"``: perspective, with OpenCV radial/tangential distortion
+    ``dist = (k1, k2, p1, p2, k3)`` applied by the unscented projection
+    (the EWA projection ignores it);
+  - ``"fisheye"``: OpenCV equidistant, ``theta_d = theta (1 + k1 th^2 +
+    k2 th^4 + k3 th^6 + k4 th^8)`` with ``dist = (k1, k2, k3, k4, unused)``;
+    always projected by the unscented transform;
+  - ``"ortho"``: orthographic, ``u = fx x + cx`` (``fx`` in pixels per
+    world unit), exact in both projection modes.
+
+``shutter="rolling"`` reads the rows top to bottom over one frame: ``(R,
+T)`` is the mid-exposure pose and ``rs_vel = [omega (3), upsilon (3)]``
+the se(3) velocity over the frame, so the pose at row time ``t in [-0.5,
+0.5]`` is ``exp([t omega]x) R``, ``exp([t omega]x) T + t upsilon``.
+Rolling cameras are projected by the unscented transform.
+
+``apply_pose_delta`` perturbs the extrinsics by a learnable (6,) se(3)
+delta (pose refinement), differentiably and exactly at zero.
 """
 
 from __future__ import annotations
@@ -29,8 +45,8 @@ class Camera:
     cy: torch.Tensor
     near: torch.Tensor
     far: torch.Tensor
-    dist: torch.Tensor  # (..., 5) OpenCV coefficients; EWA ignores them
-    rs_vel: torch.Tensor  # (..., 6) only read by a rolling shutter
+    dist: torch.Tensor  # (..., 5); meaning depends on camera_model
+    rs_vel: torch.Tensor  # (..., 6) [omega, upsilon]; only read by a rolling shutter
     camera_model: str = "pinhole"
     shutter: str = "global"
 
@@ -55,17 +71,12 @@ class Camera:
         shutter: str = "global",
     ) -> "Camera":
         """Build a camera on ``device``, coercing scalars/arrays to
-        ``dtype``."""
+        ``dtype``. ``dist`` (..., 5) and ``rs_vel`` (..., 6) default to
+        zeros, broadcast to the batch shape of ``fx``."""
         if camera_model not in ("pinhole", "fisheye", "ortho"):
             raise ValueError(f"Unknown camera_model: {camera_model!r}")
         if shutter not in ("global", "rolling"):
             raise ValueError(f"Unknown shutter: {shutter!r}")
-        if camera_model != "pinhole":
-            raise NotImplementedError(
-                f"camera_model {camera_model!r} is not ported yet (pinhole only)"
-            )
-        if shutter != "global":
-            raise NotImplementedError("rolling shutter is not ported yet")
 
         def as_t(v):
             return torch.as_tensor(v, dtype=dtype, device=device)
@@ -92,6 +103,8 @@ class Camera:
             far=as_t(far),
             dist=dist_t,
             rs_vel=rs_t,
+            camera_model=camera_model,
+            shutter=shutter,
         )
 
     @property
@@ -123,6 +136,37 @@ class Camera:
     def position(self) -> torch.Tensor:
         """(..., 3) camera center in world coordinates: -R^T @ T."""
         return -torch.einsum("...ji,...j->...i", self.R, self.T)
+
+
+def _rodrigues(omega: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) rotation: exact Rodrigues with a
+    Taylor switch at theta ~ 0. sin(t)/t and (1 - cos(t))/t^2 are 0/0
+    there, so the input of the unselected branch is sanitised as well
+    (double where): the zero rotation's gradient stays finite."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small = theta2 < 1e-12
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
+    wx, wy, wz = omega[..., 0], omega[..., 1], omega[..., 2]
+    O = torch.zeros_like(wx)
+    K = torch.stack([O, -wz, wy, wz, O, -wx, -wy, wx, O], dim=-1).reshape(
+        omega.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def apply_pose_delta(camera: Camera, delta: torch.Tensor) -> Camera:
+    """The camera with its world-to-camera map perturbed by a learnable
+    se(3) delta: (..., 6) = [omega (3, axis-angle), upsilon (3)],
+    broadcasting against the camera's batch shape. A left perturbation,
+    R' = exp([omega]x) R and T' = exp([omega]x) T + upsilon: a zero delta
+    returns R and T unchanged, and the gradients at zero are exact."""
+    dR = _rodrigues(delta[..., 0:3])
+    R = dR @ camera.R
+    T = (dR @ camera.T[..., None])[..., 0] + delta[..., 3:6]
+    return dataclasses.replace(camera, R=R, T=T)
 
 
 def look_at(eye, target, up, *, device: torch.device | str):

@@ -61,9 +61,22 @@ _S2_MAX = 1e4
 
 
 def primed_surfel_columns(columns, camera: Camera) -> tuple:
-    """Fold the pinhole intrinsics into the 12 surfel columns of
-    ``surfel.surfel_alpha_columns`` (see the module docstring)."""
+    """Fold the intrinsics into the 12 surfel columns of
+    ``surfel.surfel_alpha_columns`` (see the module docstring).
+
+    For an ortho camera the parallel-ray system ``u a_x + v b_x = xn -
+    qc_x`` takes the same kernel form with the z rows (qc2, a2, b2) = (1,
+    0, 0): A11 = fx a_x and r1 = px - (fx qc_x + cx) = fx (xn - qc_x), the
+    same row scaling by fx (and fy). The maps' intersection depth reads
+    those z rows, so the kernels take ortho only without the maps."""
     (qcx, qcy, qcz, ax, ay, az, bx, by, bz, c2x, c2y, op) = columns
+
+    if camera.camera_model == "ortho":
+        one, zero = torch.ones_like(qcz), torch.zeros_like(qcz)
+        return (camera.fx * qcx + camera.cx, camera.fy * qcy + camera.cy, one,
+                camera.fx * ax, camera.fy * ay, zero,
+                camera.fx * bx, camera.fy * by, zero,
+                c2x, c2y, op)
 
     def prime(x, y, z):
         return camera.fx * x + camera.cx * z, camera.fy * y + camera.cy * z, z

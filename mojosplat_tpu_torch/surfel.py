@@ -26,19 +26,30 @@ support. Two routes blend:
     (``ops/surfel_cuda.py``; the reference's ``"pallas"``).
 
 The two compute the alpha in different coordinates and agree to f32
-rounding. Not ported yet, and raising ``NotImplementedError``:
-``viewport_rows`` (the tile-row slab of the sharded trainer) and the
-fisheye and ortho cameras (``Camera.create`` already refuses them).
+rounding.
+
+Camera models: pinhole rays ``t (xn, yn, 1)``; fisheye rays the same
+with ``(xn, yn)`` from inverting the equidistant lens at each pixel
+(``_invert_equidistant``); ortho rays parallel, from ``(xn, yn, 0)`` along
+``(0, 0, 1)``, so the 2x2 system loses its z terms. The kernels take the
+pinhole, and ortho without the maps (primed so its z rows read ``(1, 0,
+0)``, ``primed_surfel_columns``); as in the reference, the ``"cuda"``
+route raises ``NotImplementedError`` for fisheye and for ortho with the
+maps, which the ``"torch"`` route renders. Not ported yet, and raising
+``NotImplementedError``: ``viewport_rows`` (the tile-row slab of the
+sharded trainer).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .camera import Camera
 from .config import DEFAULT_CONFIG, RenderConfig
 from .ops.binning import bin_gaussians_to_tiles, num_tiles
-from .ops.projection import project_gaussians
+from .ops.projection import apply_lens, clip, project_gaussians
 from .ops.rasterization import RasterAux, _assemble, rasterize_torch_generic
 from .ops.sh import sh_to_color
 from .ops.slice_cuda import segment_slice_gather
@@ -69,18 +80,12 @@ def _tangent_axes(quats):
     return tu, tv
 
 
-def _check_pinhole(camera: Camera) -> None:
-    if camera.camera_model != "pinhole":
-        raise NotImplementedError(
-            f"camera_model {camera.camera_model!r} is not ported for surfels (pinhole only)")
-
-
 def surfel_alpha_columns(means3d, scales, quats, opacities, camera: Camera) -> tuple:
     """12 per-surfel (N,) columns [qc(3), a(3), b(3), c2(2), opacity]:
     the camera-frame centre, the scaled camera-frame tangent axes, the
     projected centre in pixels and the opacity. ``scales`` is (N, 2) or
-    (N, 3) log scales (a third is ignored)."""
-    _check_pinhole(camera)
+    (N, 3) log scales (a third is ignored). For ortho the projected centre
+    is the affine image of qc, for fisheye the lens map of its direction."""
     tu, tv = _tangent_axes(quats)
     su = torch.exp(scales[:, 0])
     sv = torch.exp(scales[:, 1])
@@ -88,9 +93,16 @@ def surfel_alpha_columns(means3d, scales, quats, opacities, camera: Camera) -> t
     qcx, qcy, qcz = qcx + camera.T[0], qcy + camera.T[1], qcz + camera.T[2]
     ax, ay, az = _rotate_rows(*tu, camera.R)
     bx, by, bz = _rotate_rows(*tv, camera.R)
-    z = torch.clamp(qcz, min=1e-6)
-    c2x = camera.fx * (qcx / z) + camera.cx
-    c2y = camera.fy * (qcy / z) + camera.cy
+    if camera.camera_model == "ortho":
+        c2x = camera.fx * qcx + camera.cx
+        c2y = camera.fy * qcy + camera.cy
+    else:
+        z = torch.clamp(qcz, min=1e-6)
+        xn, yn = qcx / z, qcy / z
+        if camera.camera_model == "fisheye":
+            xn, yn = apply_lens(camera, xn, yn)
+        c2x = camera.fx * xn + camera.cx
+        c2y = camera.fy * yn + camera.cy
     return (qcx, qcy, qcz, su * ax, su * ay, su * az, sv * bx, sv * by, sv * bz,
             c2x, c2y, opacities)
 
@@ -116,9 +128,32 @@ def oriented_normal_columns(columns) -> tuple:
             torch.where(flip, -nz, nz))
 
 
+def _invert_equidistant(camera: Camera, xd, yd):
+    """The inverse of ``apply_lens``'s fisheye map: distorted normalised
+    coordinates -> undistorted ones (the pixel's ray is (xn, yn, 1)).
+    theta solves theta_d = theta (1 + k1 th^2 + ... + k4 th^8) by 8 Newton
+    steps (exact in one for the ideal k = 0 lens), clipped to [0, pi/2 -
+    1e-3]; then r = tan(theta). On the optical axis the input is sanitised
+    (double where) so the scale's 0/0 makes no NaN gradient."""
+    k1, k2, k3, k4 = (camera.dist[..., i] for i in range(4))
+    rd2 = xd * xd + yd * yd
+    on_axis = rd2 < 1e-12
+    rd = torch.sqrt(torch.where(on_axis, torch.ones_like(rd2), rd2))  # = theta_d
+    th = rd
+    for _ in range(8):
+        th2 = th * th
+        poly = 1.0 + th2 * (k1 + th2 * (k2 + th2 * (k3 + th2 * k4)))
+        dpoly = 1.0 + th2 * (3.0 * k1 + th2 * (5.0 * k2 + th2 * (7.0 * k3 + th2 * 9.0 * k4)))
+        th = th - (th * poly - rd) / torch.maximum(dpoly, torch.full_like(dpoly, 1e-6))
+    th = clip(th, 0.0, 0.5 * math.pi - 1e-3)
+    scale = torch.where(on_axis, torch.ones_like(rd), torch.tan(th) / rd)
+    return xd * scale, yd * scale
+
+
 def _surfel_alphas(px, py, d, valid, camera: Camera, config: RenderConfig,
                    with_depth: bool = False):
-    """Alphas (..., P, K) of K surfels at P pixels; pinhole rays.
+    """Alphas (..., P, K) of K surfels at P pixels, for the camera's rays
+    (see the module docstring).
 
     px, py: (..., P); d: (..., K, 12) rows of ``surfel_alpha_data``;
     valid: (..., K). With ``with_depth`` also returns (..., P, K, 2)
@@ -130,13 +165,24 @@ def _surfel_alphas(px, py, d, valid, camera: Camera, config: RenderConfig,
     c2, op = d[..., None, :, 9:11], d[..., None, :, 11]
     xn = (px[..., :, None] - camera.cx) / camera.fx  # (..., P, 1)
     yn = (py[..., :, None] - camera.cy) / camera.fy
+    if camera.camera_model == "fisheye":
+        xn, yn = _invert_equidistant(camera, xn, yn)
 
-    A11 = a[..., 0] - xn * a[..., 2]  # (..., P, K)
-    A12 = b[..., 0] - xn * b[..., 2]
-    A21 = a[..., 1] - yn * a[..., 2]
-    A22 = b[..., 1] - yn * b[..., 2]
-    r1 = xn * qc[..., 2] - qc[..., 0]
-    r2 = yn * qc[..., 2] - qc[..., 1]
+    if camera.camera_model == "ortho":
+        shape = torch.broadcast_shapes(xn.shape, a[..., 0].shape)
+        A11 = a[..., 0].expand(shape)  # (..., P, K)
+        A12 = b[..., 0].expand(shape)
+        A21 = a[..., 1].expand(shape)
+        A22 = b[..., 1].expand(shape)
+        r1 = xn - qc[..., 0]
+        r2 = yn - qc[..., 1]
+    else:
+        A11 = a[..., 0] - xn * a[..., 2]  # (..., P, K)
+        A12 = b[..., 0] - xn * b[..., 2]
+        A21 = a[..., 1] - yn * a[..., 2]
+        A22 = b[..., 1] - yn * b[..., 2]
+        r1 = xn * qc[..., 2] - qc[..., 0]
+        r2 = yn * qc[..., 2] - qc[..., 1]
 
     det = A11 * A22 - A12 * A21
     ok = torch.abs(det) > 1e-9  # the ray is not parallel to the disk
@@ -233,6 +279,16 @@ def render_surfels(
         raise NotImplementedError("viewport_rows is not ported yet")
     if config.raster_impl not in ("torch", "cuda"):
         raise ValueError(f"Unknown raster_impl: {config.raster_impl!r}")
+    want_vals = return_depth or return_distortion
+    want_maps = want_vals or return_normals
+    if config.raster_impl == "cuda" and (
+            camera.camera_model == "fisheye" or (camera.camera_model == "ortho" and want_maps)):
+        # The kernels read the primed z rows as the intersection depth too,
+        # which ortho priming sets to (1, 0, 0); and the fisheye needs a
+        # per-pixel lens inversion they do not make.
+        raise NotImplementedError(
+            f"camera_model={camera.camera_model!r} with maps={want_maps} requires "
+            "raster_impl='torch' for surfels (cuda takes pinhole, and ortho without maps)")
     if sh_degree is None:
         colors = features
     else:
@@ -244,8 +300,6 @@ def render_surfels(
                                      device=features.device)
 
     binning = bin_surfels(means3d, scales, quats, opacities, camera, config)
-    want_vals = return_depth or return_distortion
-    want_maps = want_vals or return_normals
     H, W = camera.H, camera.W
     if config.raster_impl == "cuda":
         ts = config.tile_size

@@ -1,4 +1,4 @@
-"""PyTorch port: RenderConfig and the pinhole Camera against the JAX package.
+"""PyTorch port: RenderConfig and the Camera against the JAX package.
 
 Same numpy inputs go to both packages. Config fields must be equal;
 camera matrices agree to 1e-6.
@@ -107,13 +107,27 @@ def test_look_at_matches():
     np.testing.assert_allclose(T.numpy(), np.asarray(jT), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("kw", [dict(camera_model="fisheye"),
-                                dict(camera_model="ortho"),
-                                dict(shutter="rolling")])
+@pytest.mark.parametrize("kw", [
+    dict(camera_model="fisheye", dist=[0.08, -0.01, 0.002, -0.0005, 0.0]),
+    dict(camera_model="ortho"),
+    dict(shutter="rolling", rs_vel=[0.05, 0.08, 0.02, 0.1, -0.05, 0.2])])
 def test_unported_cameras_raise(kw):
-    with pytest.raises(NotImplementedError):
-        Camera.create(R=np.eye(3), T=np.zeros(3), H=8, W=8, fx=1.0, fy=1.0,
-                      cx=4.0, cy=4.0, device="cpu", **kw)
+    """Named for when the port refused these cameras: each now builds, with
+    the JAX camera's fields and matrices; an unknown model still raises."""
+    rng = np.random.default_rng(11)
+    R, T = _random_pose(rng, (2,))
+    jcam = JCamera.create(R=R, T=T, H=8, W=12, fx=[1.0, 2.0], fy=1.5, cx=4.0, cy=4.0, **kw)
+    cam = Camera.create(R=R, T=T, H=8, W=12, fx=[1.0, 2.0], fy=1.5, cx=4.0, cy=4.0,
+                        device="cpu", **kw)
+    for f in dataclasses.fields(jcam):
+        want, got = getattr(jcam, f.name), getattr(cam, f.name)
+        if isinstance(want, (int, str)):
+            assert got == want, f.name
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f.name)
+    for name in ("view_matrix", "K", "position"):
+        np.testing.assert_allclose(getattr(cam, name).numpy(), np.asarray(getattr(jcam, name)),
+                                   rtol=0, atol=ATOL, err_msg=name)
     with pytest.raises(ValueError):
         Camera.create(R=np.eye(3), T=np.zeros(3), H=8, W=8, fx=1.0, fy=1.0,
                       cx=4.0, cy=4.0, device="cpu", camera_model="lens")

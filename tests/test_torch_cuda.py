@@ -42,11 +42,14 @@ the absgrad and view-space sinks' gradients of the two routes agree by
 B2's rule.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from mojosplat_tpu_torch import Camera, RenderConfig, render_gaussians
+from mojosplat_tpu_torch import (
+    Camera, RenderConfig, apply_pose_delta, render_gaussians, render_surfels)
 from mojosplat_tpu_torch.ops.expand_cuda import (
     segment_expand_offsets, segment_expand_offsets_plain)
 from mojosplat_tpu_torch.ops.raster_cuda import (
@@ -63,7 +66,8 @@ from mojosplat_tpu_torch.ops.surfel_cuda import (
     raster_surfel_tiles_check, raster_surfel_tiles_fwd, raster_surfel_tiles_plain,
     surfel_bwd_shape, surfel_fwd_shape, surfel_row_may_apply_plain, surfel_skipped_pairs_plain,
     surfel_stop_plain)
-from torch_surfel_cases import grazing_pdata, surfel_edge_pdata, surfel_pdata
+from mojosplat_tpu_torch.surfel import bin_surfels, pack_surfel_tiles
+from torch_surfel_cases import grazing_pdata, ortho_pdata, surfel_edge_pdata, surfel_pdata
 
 pytestmark = pytest.mark.cuda
 
@@ -643,3 +647,185 @@ def test_tight_cull_and_sinks_match_torch_route(dev):
         rel = (got - want).abs() / (want.abs().amax() + 1e-12)
         assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel() and float(rel.max()) <= 1e-3
     assert bool((g_c[1] >= g_c[0].abs() - 1e-6 * g_c[0].abs().amax()).all())
+
+
+# The camera models (3DGS through B4, B5, B1, B2 and B3; ortho disks
+# through B6 and B8 without the maps): the "cuda" route against the "torch"
+# route on the same inputs, renders by B1's rule and gradients by B2's.
+CAMERA_CASES = {
+    "pinhole-ut": (dict(dist=[0.05, -0.01, 1e-3, -2e-3, 0.002]), dict(projection_mode="ut")),
+    "fisheye": (dict(camera_model="fisheye", dist=[0.08, -0.01, 0.002, -0.0005, 0.0]), dict()),
+    "rolling": (dict(shutter="rolling", rs_vel=[0.05, 0.08, 0.02, 0.1, -0.05, 0.2]), dict()),
+    "ortho": (dict(camera_model="ortho", fx=30.0, fy=30.0), dict()),
+}
+
+
+def _camera_scene(dev, n, H, W, cam_kw, seed, disks=False):
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.normal(0, 1.0, (n, 2)), rng.uniform(1.5, 6.0, (n, 1))], 1)
+    p = dict(means3d=means, scales=rng.normal(-2.4, 0.4, (n, 2 if disks else 3)),
+             quats=rng.normal(size=(n, 4)), opacities=rng.uniform(0.05, 0.95, n),
+             features=rng.uniform(0, 1, (n, 3)))
+    p = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in p.items()}
+    cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=H, W=W, **dict(
+        dict(fx=120.0, fy=120.0, cx=W / 2, cy=H / 2), **cam_kw), device=dev)
+    return p, cam
+
+
+def _route_rules(name, img_c, img_t, grads_c, grads_t, share=1e-4, max_err=5e-3,
+                 grad_share=1e-5, grad_max=1e-3):
+    """B1's rule on the images and B2's on each gradient (scaled by its
+    largest magnitude), or the shares and maxima given."""
+    diff = (img_c - img_t).abs()
+    assert int((diff > 1e-5).sum()) <= share * diff.numel(), name
+    assert float(diff.max()) <= max_err, name
+    for k, (got, want) in enumerate(zip(grads_c, grads_t)):
+        assert bool(torch.isfinite(got).all()), (name, k)
+        rel = (got - want).abs() / (want.abs().amax() + 1e-12)
+        assert int((rel > 1e-4).sum()) <= grad_share * rel.numel(), (name, k)
+        assert float(rel.max()) <= grad_max, (name, k)
+
+
+@pytest.mark.parametrize("case", list(CAMERA_CASES))
+def test_camera_models_cuda_route_matches_torch(dev, case):
+    cam_kw, cfg_kw = CAMERA_CASES[case]
+    H, W, n = 96, 160, 2000
+    p, cam = _camera_scene(dev, n, H, W, cam_kw, seed=len(case))
+    w = torch.from_numpy(np.random.default_rng(1).normal(size=(H, W, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for route in ("torch", "cuda"):
+        cfg = RenderConfig(raster_impl=route, tile_capacity=256, **cfg_kw)
+        means = p["means3d"].clone().requires_grad_(True)
+        delta = torch.zeros(6, device=dev, requires_grad=True)
+        img, aux = render_gaussians(means, *(p[k] for k in ("scales", "quats", "opacities",
+                                                           "features")),
+                                    apply_pose_delta(cam, delta), config=cfg, return_aux=True)
+        (img * w).sum().backward()
+        out[route] = (img.detach(), aux.binning, [means.grad, delta.grad[None]])
+    torch.cuda.synchronize()
+    (img_t, bin_t, g_t), (img_c, bin_c, g_c) = out["torch"], out["cuda"]
+    for name in bin_t._fields:
+        assert int(getattr(bin_c, name)) == int(getattr(bin_t, name)), name
+    assert int(bin_c.num_isects) > 0 and float(img_c.std()) > 0.02
+    _route_rules(case, img_c, img_t, g_c, g_t)
+
+
+def camera_to(cam, device):
+    """The camera with its tensors on ``device``."""
+    return dataclasses.replace(cam, **{f.name: getattr(cam, f.name).to(device)
+                                       for f in dataclasses.fields(cam)
+                                       if isinstance(getattr(cam, f.name), torch.Tensor)})
+
+
+def test_ortho_disks_cuda_route_matches_torch(dev):
+    """Ortho disks without the maps through B6 and B8 (aux=False), against
+    the same route's plain versions on the CPU and the "torch" route; B6's
+    row skip on the ortho records bit-equal to the
+    full walk, its count the plain mirror's; with the maps, and for the
+    fisheye, the "cuda" route raises as the reference's "pallas" route."""
+    H, W, n = 96, 160, 2000
+    p, cam = _camera_scene(dev, n, H, W, CAMERA_CASES["ortho"][0], seed=3, disks=True)
+    keys = ("means3d", "scales", "quats", "opacities", "features")
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(H, W, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for route, device in (("torch", dev), ("cuda", dev), ("cuda", "cpu")):
+        cfg = RenderConfig(raster_impl=route, tile_capacity=256)
+        means = p["means3d"].clone().to(device).requires_grad_(True)
+        img = render_surfels(means, *(p[k].to(device) for k in keys[1:]),
+                             camera_to(cam, device), config=cfg)
+        (img * w.to(device)).sum().backward()
+        out[route, str(device)] = (img.detach().to(dev), [means.grad.to(dev)])
+    torch.cuda.synchronize()
+    # The kernels against their plain versions on CPU copies (the same
+    # primed coordinates): B1's and B2's rules.
+    _route_rules("ortho disks, kernels", *out["cuda", str(dev)][:1], *out["cuda", "cpu"][:1],
+                 out["cuda", str(dev)][1], out["cuda", "cpu"][1])
+    # The two routes compute the alpha in other coordinates: chip_smoke.py's
+    # route rule (renders: 0.1% of values off by 1e-5, none by 2e-2;
+    # gradients: none off by 1e-2 of the scale, and 0.1% by 1e-4, since
+    # one value of these 6,000 is 1.7e-4 of them).
+    _route_rules("ortho disks, routes", out["cuda", str(dev)][0], out["torch", str(dev)][0],
+                 out["cuda", str(dev)][1], out["torch", str(dev)][1], share=1e-3, max_err=2e-2,
+                 grad_share=1e-3, grad_max=1e-2)
+    cfg = RenderConfig(raster_impl="cuda", tile_capacity=256)
+    ts = cfg.tile_size
+    tw = -(-W // ts)
+    with torch.no_grad():
+        bins = bin_surfels(*(p[k] for k in keys[:4]), cam, cfg)
+        pdata, counts = pack_surfel_tiles(*(p[k] for k in keys), cam, bins, cfg, False)
+        assert bool((pdata[5] == 0).all() and (pdata[8] == 0).all())  # ortho: a2 = b2 = 0
+        skip = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, False)
+        full = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, False, walk_all=True)
+        may = surfel_row_may_apply_plain(pdata, counts.shape[0], ts, tw, cfg)
+    torch.cuda.synchronize()
+    stop = skip[2]
+    live = (torch.arange(skip[1].shape[1], device=dev)[None, :, None] * 16) < stop[:, None, :]
+    assert torch.equal(skip[0].view(torch.int32), full[0].view(torch.int32))
+    assert torch.equal(skip[2], full[2])
+    assert torch.equal(skip[1].view(torch.int32)[live], full[1].view(torch.int32)[live])
+    assert torch.equal(skip[3], surfel_skipped_pairs_plain(may, counts, stop))
+    assert int(skip[3].sum()) > 0
+    for camera, maps in ((cam, True), (dataclasses.replace(cam, camera_model="fisheye"), False)):
+        with pytest.raises(NotImplementedError):
+            render_surfels(*(p[k] for k in keys), camera, config=cfg, return_depth=maps)
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_surfel_kernels_on_ortho_records(dev, ts):
+    """B6 and B8 (aux=False) on ortho-primed records (z rows (1, 0, 0)) with
+    edge-on and nearly edge-on disks and threshold opacities: B6 by B1's
+    rule against the plain forward, its row skip bit-equal to the full walk
+    and its skip count the mirror's, no skipped (row, slot) pair kept by a
+    pixel (brute force); B8 by B2's rule, bitwise reproducible."""
+    rng = np.random.default_rng(ts + 101)
+    n_tiles, tw, cap = 12, 4, 512
+    pdata = torch.from_numpy(ortho_pdata(rng, n_tiles, tw, ts, cap, False)).to(dev)
+    counts = torch.tensor([0, 1, 15, 16, 17, 255, 256, 257, 511, 512, 300, 600],
+                          dtype=torch.int32, device=dev)
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, tile_batch=4)
+    got = raster_surfel_tiles(pdata, counts, ts, tw, cfg, False)
+    want = raster_surfel_tiles_plain(pdata, counts, ts, tw, cfg, False)
+    skip = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, False)
+    full = raster_surfel_tiles_check(pdata, counts, ts, tw, cfg, False, walk_all=True)
+    may = surfel_row_may_apply_plain(pdata, n_tiles, ts, tw, cfg)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    diff = (got - want).abs() / scale
+    assert int((diff > 1e-5).sum()) <= 1e-4 * diff.numel() and float(diff.max()) <= 5e-3
+    stop = skip[2]
+    live = (torch.arange(skip[1].shape[1], device=dev)[None, :, None] * 16) < stop[:, None, :]
+    assert torch.equal(skip[0].view(torch.int32), got.view(torch.int32))
+    assert torch.equal(full[0].view(torch.int32), got.view(torch.int32))
+    assert torch.equal(full[2], stop)
+    assert torch.equal(skip[1].view(torch.int32)[live], full[1].view(torch.int32)[live])
+    assert torch.equal(skip[3], surfel_skipped_pairs_plain(may, counts, stop))
+    assert int(skip[3].sum()) > 0
+    pd = pdata.reshape(pdata.shape[0], n_tiles, cap)
+    _, _, geo = _surfel_geometry_all(pd, n_tiles, ts, tw, cap, cfg)
+    kept = geo["keep"].reshape(n_tiles, ts, ts, cap).any(dim=2)
+    assert not bool((kept & ~may).any())
+    gout = torch.from_numpy(rng.normal(size=(n_tiles, 5, ts * ts)).astype(np.float32)).to(dev)
+    # The backward on the same records with the NaN opacities at 0 (a NaN
+    # opacity's gradients are NaN on both sides).
+    pdata = pdata.clone()
+    pdata[11] = torch.nan_to_num(pdata[11], nan=0.0)
+
+    def kernel_grad():
+        p = pdata.clone().requires_grad_(True)
+        raster_surfel_tiles(p, counts, ts, tw, cfg, False).backward(gout)
+        return p.grad
+
+    d_got = kernel_grad()
+    d_want = raster_surfel_tiles_bwd_plain(pdata, counts, gout, ts, tw, cfg, False)
+    torch.cuda.synchronize()
+    rel = (d_got - d_want).abs() / (d_want.abs().amax(dim=1, keepdim=True) + 1e-12)
+    assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel() and float(rel.max()) <= 1e-3
+    assert torch.equal(kernel_grad(), d_got)
+
+
+def _surfel_geometry_all(pd, n_tiles, ts, tw, cap, cfg):
+    from mojosplat_tpu_torch.ops.surfel_cuda import _surfel_geometry
+
+    counts = torch.full((n_tiles,), cap, dtype=torch.int32, device=pd.device)
+    return _surfel_geometry(torch.arange(n_tiles, device=pd.device), pd, 0, cap, counts, ts,
+                            tw, cfg, False)

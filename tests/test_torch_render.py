@@ -7,9 +7,10 @@
     tolerances of tests/test_golden.py;
 (c) the trained-scene loader, exactly equal to the JAX package's;
 (d) the port imports without jax;
-(e) what is not ported yet raises ``NotImplementedError``; the options
-    ported since (``tight_cull``, ``means2d_offset``, ``absgrad_sink``)
-    leave the forward unchanged;
+(e) what is not ported yet (``viewport_rows``) raises
+    ``NotImplementedError``; the options ported since (``tight_cull``,
+    ``means2d_offset``, ``absgrad_sink``) leave the forward unchanged, and
+    ``projection_mode="ut"`` renders as JAX's "xla" route;
 (f) the densification sinks' cotangents on both port routes against JAX's
     "xla" route at the gradient tolerance (rtol 5e-5, atol 5e-6 x max|g|),
     and absgrad against JAX's "pallas" route at that route's own tolerance
@@ -173,10 +174,18 @@ def test_unported_options_raise():
     cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0,
                         cx=8.0, cy=8.0, device="cpu")
     args = [p[k] for k in KEYS] + [cam]
-    for kw in (dict(viewport_rows=(0, 16)),
-               dict(config=RenderConfig(projection_mode="ut"))):
-        with pytest.raises(NotImplementedError):
-            render_gaussians(*args, sh_degree=3, **kw)
+    with pytest.raises(NotImplementedError):
+        render_gaussians(*args, sh_degree=3, viewport_rows=(0, 16))
+    # The UT projection, once refused here, renders as JAX's "xla" route.
+    jcam = JCamera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0, cx=8.0,
+                          cy=8.0)
+    jcfg = JConfig(projection_mode="ut")
+    want = jrender(*(jnp.asarray(p[k].numpy()) for k in KEYS), jcam, sh_degree=3, config=jcfg)
+    for route in ("torch", "cuda"):
+        cfg = dataclasses.replace(config_from_jax(dataclasses.asdict(jcfg)), raster_impl=route)
+        np.testing.assert_allclose(render_gaussians(*args, sh_degree=3, config=cfg).numpy(),
+                                   np.asarray(want), rtol=0, atol=ATOL, err_msg=route)
+    assert float(np.abs(np.asarray(want)).max()) > 0.05
     # The ported options: zero sinks and tight culling leave the image as it
     # was (the culled slots add nothing to any pixel).
     want = render_gaussians(*args, sh_degree=3)

@@ -1,7 +1,9 @@
-"""PyTorch port: SH colour and EWA projection against the JAX package.
+"""PyTorch port: SH colour and the EWA and UT projections against the JAX package.
 
 Same numpy inputs go to both packages. Float outputs agree to rtol 1e-5
-with atol 1e-5 * max|ref|; the integer radii are exactly equal.
+with atol 1e-5 * max|ref|; the integer radii are exactly equal in EWA mode,
+and in UT mode at most one lane's differs, by one pixel (see
+test_unscented_projection_not_ported).
 """
 
 import dataclasses
@@ -120,9 +122,23 @@ def test_project_gaussians_matches(cfg_kw):
 
 
 def test_unscented_projection_not_ported():
-    p = make_gaussians(8, seed=0)
-    _, cam = make_cameras(0)
-    with pytest.raises(NotImplementedError):
-        tproj.project_gaussians(
-            *(torch.from_numpy(p[k]) for k in ("means3d", "scales", "quats", "opacities")),
-            cam, config_from_jax({"projection_mode": "ut"}))
+    """Named for when the port refused the UT mode: it now matches JAX's on
+    the scene of the EWA test (a dead slot at the origin, a gaussian
+    closer than the near plane), with antialiasing. The integer radii may
+    flip at the ceil where the two packages' f32 sums differ in the last
+    place: at most one lane, by one pixel."""
+    p = make_gaussians(128, seed=12)
+    jcam, cam = make_cameras(3)
+    jcfg = JConfig(projection_mode="ut", antialiased=True)
+    want = jproj.project_gaussians(
+        *(jnp.asarray(p[k]) for k in ("means3d", "scales", "quats", "opacities")), jcam, jcfg)
+    got = tproj.project_gaussians(
+        *(torch.from_numpy(p[k]) for k in ("means3d", "scales", "quats", "opacities")),
+        cam, config_from_jax(dataclasses.asdict(jcfg)))
+    for name in ("means2d", "conics", "depths", "compensations"):
+        assert_close(getattr(got, name), getattr(want, name), name)
+    flips = (got.radii.numpy() != np.asarray(want.radii)).any(axis=1)
+    assert int(flips.sum()) <= 1
+    assert np.abs(got.radii.numpy() - np.asarray(want.radii)).max() <= 1
+    kept = (got.radii > 0).all(dim=1)
+    assert 0 < int(kept.sum()) < 128

@@ -277,11 +277,17 @@ def test_unported_options_raise():
     cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0, cx=8.0,
                         cy=8.0, device="cpu")
     args = [p[k] for k in KEYS]
+    fisheye = dataclasses.replace(cam, camera_model="fisheye")
     for route in ("torch", "cuda"):
         cfg = RenderConfig(raster_impl=route)
         with pytest.raises(NotImplementedError):
             render_surfels(*args, cam, config=cfg, viewport_rows=(0, 16))
-        with pytest.raises(NotImplementedError):  # only the pinhole camera is ported
-            render_surfels(*args, dataclasses.replace(cam, camera_model="fisheye"), config=cfg)
+    # The fisheye raises on the "cuda" route only, as on JAX's "pallas" route
+    # (the kernels make no per-pixel lens inversion); "torch" renders it.
+    with pytest.raises(NotImplementedError):
+        render_surfels(*args, fisheye, config=RenderConfig(raster_impl="cuda"))
+    with torch.no_grad():
+        img = render_surfels(*args, fisheye, config=RenderConfig(raster_impl="torch"))
+    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
     with pytest.raises(ValueError):  # the kernels blend rgb only
         render_surfels(*args[:4], torch.zeros(16, 4), cam, config=RenderConfig(raster_impl="cuda"))

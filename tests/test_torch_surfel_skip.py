@@ -22,8 +22,10 @@ over every pixel at 64x64 scale:
     backward, against a serial f32 walk written in numpy from the Pallas
     kernel's per-pixel rule (mojosplat_tpu/ops/surfel_pallas.py:90-114).
 
-The card holds the kernels' count to the mirror's, and the skip's output
-and residual to the full walk's bit for bit (tests/test_torch_cuda.py).
+Ortho-primed records (z rows (1, 0, 0)) are held to (a) as well, with
+edge-on and nearly edge-on disks. The card holds the kernels' count to the
+mirror's, and the skip's output and residual to the full walk's bit for bit
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -34,7 +36,7 @@ from mojosplat_tpu_torch.ops.rasterization import tile_pixel_centers
 from mojosplat_tpu_torch.ops.surfel_cuda import (
     _surfel_geometry, surfel_row_may_apply_plain, surfel_skipped_pairs_plain, surfel_stop_plain,
     surfel_warp_rows)
-from torch_surfel_cases import grazing_pdata, surfel_edge_pdata
+from torch_surfel_cases import grazing_pdata, ortho_pdata, surfel_edge_pdata
 
 
 def kept_by_row(pdata, n_tiles, ts, tw, config, aux):
@@ -70,6 +72,38 @@ def test_row_test_never_skips_a_kept_slot(ts, aux):
     # It skips most of what no pixel keeps.
     far = ~kept
     assert float((far & ~may).sum()) >= 0.7 * float(far.sum())
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_row_test_never_skips_a_kept_ortho_slot(ts):
+    """The row test was argued for pinhole-primed records; ortho priming
+    (z rows (1, 0, 0): A11, A12, A21 constant along the row, r1 affine in
+    px) is a case of the same form. Held to brute force on ortho disks with
+    edge-on and nearly edge-on ones and threshold opacities, and with some
+    walks stopped early: the count of skipped pairs is the mirror's."""
+    rng = np.random.default_rng(90 + ts)
+    tw, cap = 64 // ts, 256
+    n_tiles = tw * tw
+    cfg = RenderConfig(tile_size=ts, tile_capacity=cap, chunk_size=64)
+    pdata = torch.from_numpy(ortho_pdata(rng, n_tiles, tw, ts, cap, False))
+    pd = pdata.reshape(-1, n_tiles, cap)
+    assert bool((pd[2] == 1).all() and (pd[5] == 0).all() and (pd[8] == 0).all())
+    may = surfel_row_may_apply_plain(pdata, n_tiles, ts, tw, cfg)
+    kept = kept_by_row(pdata, n_tiles, ts, tw, cfg, False)
+    missed = kept & ~may
+    assert not bool(missed.any()), f"{int(missed.sum())} kept (row, slot) pairs skipped"
+    k = torch.arange(cap).repeat(n_tiles).reshape(n_tiles, cap)
+    graze = ((k % 3 == 0) & (k % 10 != 0))[:, None, :].expand_as(kept)
+    assert int((kept & graze).sum()) > 100  # nearly edge-on disks are kept here and there
+    nan = torch.isnan(pd[11])[:, None, :].expand_as(may)
+    assert bool(may[nan].all())
+    far = ~kept
+    assert float((far & ~may).sum()) >= 0.7 * float(far.sum())
+    # The skip count over walks that stop where the serial walk stops.
+    counts = torch.full((n_tiles,), cap, dtype=torch.int32)
+    counts[0] = 37
+    stop = surfel_stop_plain(pdata, counts, ts, tw, cfg, False)
+    assert int(surfel_skipped_pairs_plain(may, counts, stop).sum()) > 0
 
 
 @pytest.mark.parametrize("ts", [8, 16, 32])

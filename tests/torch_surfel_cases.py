@@ -86,3 +86,41 @@ def grazing_pdata(rng, n_tiles, tw, ts, cap, aux):
     pd[11, sel] = rng.choice([thr, thr * np.float32(1.0 + 1e-6), thr * np.float32(1.0 - 1e-6),
                               np.float32(0.0), np.float32(np.nan)], sel.sum())
     return pd
+
+
+def ortho_pdata(rng, n_tiles, tw, ts, cap, aux):
+    """Packed slot rows of disks seen by an ortho camera (its z rows (1, 0,
+    0), ``primed_surfel_columns``), made with the port's own column
+    functions: each disk's centre within 4 px of its tile, one in ten
+    edge-on (the plane holds the view direction, so det A = 0 at every
+    pixel), every third nearly so (its normal tilted 1e-6 to 1e-2 rad from
+    the image plane: det A near 0), and opacities at, just above and below
+    the threshold, 0 and NaN at every 11th slot."""
+    H, W = n_tiles // tw * ts, tw * ts
+    f = W / 4.0  # pixels per world unit
+    cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=H, W=W, fx=f, fy=1.1 * f, cx=W / 2,
+                        cy=H / 2, device="cpu", camera_model="ortho")
+    m = n_tiles * cap
+    k = np.arange(m)
+    tile = np.repeat(np.arange(n_tiles), cap)
+    sx = (tile % tw) * ts + rng.uniform(-4, ts + 4, m)
+    sy = (tile // tw) * ts + rng.uniform(-4, ts + 4, m)
+    means = np.stack([(sx - W / 2) / f, (sy - H / 2) / (1.1 * f), rng.uniform(1.0, 4.0, m)], 1)
+    scales = np.log(rng.uniform(0.5, 8.0, (m, 2)) / f)
+    quats = rng.normal(size=(m, 4))
+    # A rotation by pi/2 - eps about x turns the disk (tangents x and y) to
+    # hold the z axis up to eps.
+    eps = np.where(k % 10 == 0, 0.0, rng.choice([1e-6, 1e-4, 1e-2], m))
+    half = (np.pi / 2 - eps) / 2
+    graze = (k % 10 == 0) | (k % 3 == 0)
+    quats[graze] = np.stack([np.cos(half), np.sin(half), 0 * half, 0 * half], 1)[graze]
+    opac = rng.uniform(0.05, 0.99, m)
+    thr = 1.0 / 255.0
+    sel = k % 11 == 5
+    opac[sel] = rng.choice([thr, thr * (1.0 + 1e-6), thr * (1.0 - 1e-6), 0.0, np.nan], sel.sum())
+    cols = surfel_alpha_columns(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (means, scales, quats, opac)), cam)
+    pcols = list(primed_surfel_columns(cols, cam))
+    pcols += [torch.from_numpy(rng.uniform(0, 1.5, m).astype(np.float32)) for _ in range(3)]
+    pcols += list(oriented_normal_columns(cols)) if aux else [torch.zeros(m)]
+    return torch.stack(pcols).numpy()
