@@ -151,6 +151,28 @@ exits nonzero without printing the final result line:
      "torch" route at a reduced size (FISHEYE_DISK_STRIDE, a quarter of the
      resolution).
 
+ 15. The COLMAP capture path (the phase 15 constants below), through the
+     port's entry points: a capture at 1920x1080 (16 views about the
+     scene camera, the "cuda" route's renders of the trained scene as
+     targets, 200,000 of its gaussians as the SfM cloud, observed in every
+     view that sees them) written with the port's writers; the native IO
+     built from mojosplat_tpu_torch/native/io_native.c, its readers equal
+     to the Python ones on the capture (both parse times printed); the KNN
+     init's time (the Morton path); train_colmap.main on the "cuda" route:
+     3DGS with MCMC at 1M slots, tight culling, the depth loss and the
+     pose, exposure and bilateral-grid refinements (relocating every 100
+     steps: none falls in the run), checkpointed at step 100, then
+     --resume to step 150; 2DGS with MCMC, 30 steps. Every step
+     must launch B1-B5 (3DGS) or B3-B5, B7 and B8 (2DGS) exactly once and
+     nothing else; the losses must be finite and the mean of the last 10
+     below that of the first 10; the view parameters must leave identity;
+     the checkpoint must restore bit-equal to the state it saved and the
+     final PLY to the final parameters. Prints each run's median step
+     time, steps/s, peak memory and MCMC relocations. eval_colmap on every
+     4th view of the final PLY with a 20-step bilateral-grid appearance
+     fit, and of the SfM initialisation: the trained mean PSNR must lie
+     above the initial one.
+
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
 kernels), so a few values near a threshold may flip. Each output row is
@@ -163,7 +185,8 @@ than ROUTE_GRAD_MAX_REL of it.
 The line before the last is a JSON object with each kernel's launches in
 one training step of its path (B6: in the render without maps; B9: in the
 probe's run, one entry per variant; launches_cameras: in one pose step of
-phase 14 for B1-B5, in the ortho disks' backward for B6 and B8), its max
+phase 14 for B1-B5, in the ortho disks' backward for B6 and B8;
+launches_capture_3dgs / _2dgs: in each step of phase 15's runs), its max
 abs error against the plain version, its times and its bound (for B6-B8,
 as for B1 and B2, counting the per-pair work only on the walked pairs
 whose (pixel row, slot) pair the row test keeps, plus the row tests; B9
@@ -178,7 +201,9 @@ import importlib.util
 import json
 import math
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -304,6 +329,32 @@ RS_VEL = (0.05, 0.08, 0.02, 0.1, -0.05, 0.2)
 ORTHO_FILL = 0.9
 POSE_ERROR, POSE_LR = (2e-3, -1.5e-3, 1e-3, 4e-3, -3e-3, 2e-3), 1e-4
 FISHEYE_DISK_STRIDE = 16
+
+# Phase 15, the COLMAP capture path: a capture at the sizes users train on
+# (a Tanks and Temples capture: 1957x1091, ~136k SfM points; 3DGS-MCMC at a
+# 1M cap), written under build/capture with the port's writers: one
+# PINHOLE camera at H x W with the scene camera's intrinsics, CAPTURE_VIEWS
+# poses within CAPTURE_SPAN_DEG of the scene camera about its look-at point
+# (a yaw row of 8 at each of two pitches), the "cuda"-route renders of the
+# trained scene as the targets, and CAPTURE_POINTS of its gaussians (drawn
+# with CAPTURE_SEED) as the SfM cloud, coloured by their SH DC and observed
+# in every view where they project in frame at z > 0. The runs are the
+# train_colmap CLI's (CAPTURE_3DGS, then --resume to CAPTURE_RESUME_STEPS;
+# CAPTURE_2DGS) and eval_colmap on every CAPTURE_EVAL_EVERY-th view. The
+# 3DGS run relocates every 100 steps, so none of its 150 steps does (the
+# CLI skips an event at a run's last step): a relocation at step 50 moves
+# the 848,576 padded slots onto the 200,000 points, and the CLI's position
+# noise, --lr x 5e5 x the opacity gate as in the reference (0.17 at the
+# copies' opacity of ~0.02), flings the copies and the loss rises from
+# 0.07 to 0.25 and is still 0.16 at step 150 (ROADMAP Queue C; PERF.md
+# section 6, PR 10). Phase 13 relocates at 1M slots.
+CAPTURE_VIEWS, CAPTURE_SPAN_DEG, CAPTURE_POINTS, CAPTURE_SEED = 16, 10.0, 200_000, 0
+CAPTURE_3DGS = ["--downscale", "1", "--max-gaussians", "1048576", "--tight-cull",
+                "--strategy", "mcmc", "--densify-every", "100", "--depth-loss", "0.05",
+                "--pose-opt", "--exposure-opt", "--bilagrid"]
+CAPTURE_STEPS, CAPTURE_RESUME_STEPS = 100, 150  # checkpointed at CAPTURE_STEPS
+CAPTURE_2DGS = ["--downscale", "1", "--primitive", "2dgs", "--strategy", "mcmc", "--steps", "30"]
+CAPTURE_EVAL_EVERY, CAPTURE_EVAL_STEPS = 4, 20
 
 
 def phase(name: str, msg: str) -> None:
@@ -1574,6 +1625,270 @@ def camera_phase(raw: dict, sh_degree: int, counters: dict, kernels: list, smi: 
     return launches
 
 
+def state_equal(got, want, path: str = "state") -> None:
+    """Raise unless two nested training states (dicts, lists, tensors,
+    numbers) are equal bit for bit, dtypes included."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            state_equal(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} items != {len(want)}")
+        for j, (a, b) in enumerate(zip(got, want)):
+            state_equal(a, b, f"{path}[{j}]")
+    elif isinstance(want, torch.Tensor):
+        if got.dtype != want.dtype or not torch.equal(got.to(want.device), want):
+            raise AssertionError(f"{path}: tensors differ")
+    elif got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """A rotation matrix -> COLMAP's wxyz quaternion (w >= 0)."""
+    w = math.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+    x = math.copysign(math.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2.0,
+                      R[2, 1] - R[1, 2])
+    y = math.copysign(math.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2.0,
+                      R[0, 2] - R[2, 0])
+    z = math.copysign(math.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2.0,
+                      R[1, 0] - R[0, 1])
+    return np.array([w, x, y, z])
+
+
+def write_capture(root: Path, raw: dict, sh_degree: int) -> dict:
+    """Phase 15's capture (see its constants) under ``root``: the sparse
+    model in root/sparse/0 and the targets in root/images, written with the
+    port's own writers. Returns the view poses and the cloud."""
+    from mojosplat_tpu_torch import Camera, RenderConfig, render_gaussians
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.ops.sh import _C0
+    from mojosplat_tpu_torch.train import activate
+    from mojosplat_tpu_torch.utils.colmap import qvec_to_rotmat
+    from mojosplat_tpu_torch.utils.image import save_png
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+
+    dev = torch.device("cuda", 0)
+    base = scene_camera(H, W, device="cpu")
+    fx, cx, cy = float(base.fx), float(base.cx), float(base.cy)
+    target = np.array([0.0, 0.4, 0.0])
+    eye0 = (-base.R.double().T @ base.T.double()).numpy()
+    poses = []
+    for j in range(CAPTURE_VIEWS):
+        yaw = math.radians(np.linspace(-CAPTURE_SPAN_DEG, CAPTURE_SPAN_DEG, 8)[j % 8])
+        pitch = math.radians((-0.5, 0.5)[j // 8 % 2] * CAPTURE_SPAN_DEG)
+        ry = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                       [-math.sin(yaw), 0, math.cos(yaw)]])
+        rx = np.array([[1, 0, 0], [0, math.cos(pitch), -math.sin(pitch)],
+                       [0, math.sin(pitch), math.cos(pitch)]])
+        eye = target + ry @ rx @ (eye0 - target)
+        forward = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(forward, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(forward, right), forward])
+        q = rotmat_to_qvec(R)
+        poses.append((f"view_{j:02d}.png", q, -qvec_to_rotmat(q) @ eye))
+
+    sparse = root / "sparse" / "0"
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    sparse.mkdir(parents=True, exist_ok=True)
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<QiiQQ4d", 1, 1, 1, W, H, fx, fx, cx, cy))
+
+    # The SfM cloud: CAPTURE_POINTS of the scene's gaussians, their SH DC
+    # as colour, each observed in every view where it projects in frame.
+    n = raw["means3d"].shape[0]
+    pick = np.random.default_rng(CAPTURE_SEED).choice(n, CAPTURE_POINTS, replace=False)
+    xyz = raw["means3d"][pick].astype(np.float64)
+    rgb = np.round(np.clip(raw["features"][pick, 0] * _C0 + 0.5, 0, 1) * 255).astype(np.uint8)
+    obs = np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")])
+    tracks = [[] for _ in range(CAPTURE_POINTS)]
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(poses)))
+        for j, (name, q, t) in enumerate(poses):
+            pc = xyz @ qvec_to_rotmat(q).T + t
+            z = pc[:, 2]
+            u = fx * pc[:, 0] / np.where(z > 0, z, 1.0) + cx
+            v = fx * pc[:, 1] / np.where(z > 0, z, 1.0) + cy
+            seen = np.flatnonzero((z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H))
+            rec = np.zeros(seen.size, obs)
+            rec["x"], rec["y"], rec["id"] = u[seen], v[seen], seen + 1
+            f.write(struct.pack("<i4d3di", j + 1, *q, *t, 1) + name.encode() + b"\0")
+            f.write(struct.pack("<Q", seen.size) + rec.tobytes())
+            for k, p in enumerate(seen):
+                tracks[p].append((j + 1, k))
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", CAPTURE_POINTS))
+        for p in range(CAPTURE_POINTS):
+            f.write(struct.pack("<Q3d3BdQ", p + 1, *xyz[p], *rgb[p], 0.5, len(tracks[p])))
+            f.write(np.asarray(tracks[p], "<i4").tobytes())
+
+    # The targets: the "cuda" route's renders of the whole scene.
+    p = activate(params_from_numpy(raw, dev))
+    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    for name, q, t in poses:
+        cam = Camera.create(R=qvec_to_rotmat(q).astype(np.float32), T=t.astype(np.float32),
+                            H=H, W=W, fx=fx, fy=fx, cx=cx, cy=cy, device=dev)
+        with torch.no_grad():
+            img = render_gaussians(*(p[k] for k in KEYS), cam, sh_degree=sh_degree, config=cfg)
+        save_png(img.cpu().numpy(), str(root / "images" / name))
+    return dict(xyz=xyz, rgb=rgb, views=len(poses),
+                observations=sum(len(tr) for tr in tracks))
+
+
+def capture_phase(raw: dict, sh_degree: int, counters: dict, smi: str) -> dict:
+    """Phase 15: the COLMAP capture path through the port's entry points
+    (see the constants above). Returns the launches of B1-B5 in a 3DGS step
+    and of B3-B5, B7 and B8 in a 2DGS step (counters: name -> wrapper of
+    B4, B5, B1, B2, B3, B9)."""
+    from mojosplat_tpu_torch import native
+    from mojosplat_tpu_torch.examples import eval_colmap, train_colmap
+    from mojosplat_tpu_torch.ops.surfel_cuda import raster_surfel_tiles_bwd, raster_surfel_tiles_fwd
+    from mojosplat_tpu_torch.utils import colmap as cm
+    from mojosplat_tpu_torch.utils.checkpoint import restore_checkpoint
+    from mojosplat_tpu_torch.utils.ply import load_gaussian_ply, save_gaussian_ply
+
+    dev = torch.device("cuda", 0)
+    counters = dict(counters, B8=raster_surfel_tiles_bwd)
+    lib = native.get_native()
+    if lib is None:
+        raise AssertionError("capture: the native IO did not build (see the warning above)")
+    phase("capture", f"native IO {Path(lib.__file__).relative_to(ROOT)}")
+    root = ROOT / "build" / "capture"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = write_capture(root, raw, sh_degree)
+    phase("capture", f"{info['views']} views at {W}x{H}, {CAPTURE_POINTS} SfM points, "
+          f"{info['observations']} observations, written in {time.perf_counter() - t0:.2f} s "
+          f"({sum(f.stat().st_size for f in root.rglob('*') if f.is_file()) / 1e6:.1f} MB)")
+
+    # The readers: native against pure Python, bit for bit.
+    sparse = str(root / "sparse" / "0")
+    t0 = time.perf_counter()
+    nat = (cm.read_cameras_bin(sparse + "/cameras.bin"), cm.read_images_bin(sparse + "/images.bin"),
+           cm.read_points3d_bin(sparse + "/points3D.bin"))
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = (cm._read_cameras_python(sparse + "/cameras.bin"),
+          cm._read_images_python(sparse + "/images.bin"),
+          cm._read_points_python(sparse + "/points3D.bin"))
+    t_py = time.perf_counter() - t0
+    for a, b in zip(nat[0], py[0]):
+        assert (a.camera_id, a.model_id, a.width, a.height) == (
+            b.camera_id, b.model_id, b.width, b.height) and np.array_equal(a.params, b.params)
+    for a, b in zip(nat[1], py[1]):
+        assert (a.image_id, a.camera_id, a.name) == (b.image_id, b.camera_id, b.name)
+        assert np.array_equal(a.qvec, b.qvec) and np.array_equal(a.tvec, b.tvec)
+    assert len(nat[1]) == len(py[1]) == info["views"]
+    for a, b in zip(nat[2], py[2]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(nat[2][0], info["xyz"]) and np.array_equal(nat[2][1], info["rgb"])
+    phase("capture", f"parsed: native readers {t_nat * 1e3:.1f} ms, Python readers "
+          f"{t_py * 1e3:.1f} ms, equal arrays")
+    scene = cm.load_scene(sparse)
+    t0 = time.perf_counter()
+    init = cm.init_gaussians_from_points(scene.points_xyz, scene.points_rgb, sh_degree=3)
+    phase("capture", f"KNN init of {CAPTURE_POINTS} points (the Morton-window path past "
+          f"131072): {time.perf_counter() - t0:.3f} s")
+
+    # The runs, through main(argv) on the "cuda" route, each step's
+    # launches read (and the counters set to 0) after it.
+    def run(argv, kernels):
+        log = dict(ms=[], launches=[])
+
+        def reset():
+            for fn in counters.values():
+                fn.launches = 0
+            raster_surfel_tiles_fwd.launches = raster_surfel_tiles_fwd.launches_maps = 0
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            launched = {k: fn.launches for k, fn in counters.items()}
+            launched["B6"] = raster_surfel_tiles_fwd.launches
+            launched["B7"] = raster_surfel_tiles_fwd.launches_maps
+            if any(launched[k] != (1 if k in kernels else 0) for k in launched):
+                raise AssertionError(f"capture: step {step} launched {launched}; "
+                                     f"expected one each of {kernels} and nothing else")
+            log["ms"].append((now - log["t"]) * 1e3)
+            log["t"] = now
+            reset()
+
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        log["t"] = time.perf_counter()
+        result = train_colmap.main(["--data", str(root)] + argv, on_step=on_step)
+        result["peak"] = torch.cuda.max_memory_allocated(dev)
+        result.update(log)
+        losses = np.array(result["losses"])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"capture: a non-finite loss in {losses}")
+        med = statistics.median(log["ms"])
+        phase("capture", f"{len(losses)} steps: median step {med:.2f} ms ({1e3 / med:.2f} "
+              f"steps/s), peak device memory {result['peak'] / 2**30:.2f} GiB; events "
+              + json.dumps(result["events"]) + f"; {smi}")
+        return result
+
+    out3 = root / "out_3dgs"
+    kernels3 = ("B1", "B2", "B3", "B4", "B5")
+    first = run(CAPTURE_3DGS + ["--out-dir", str(out3), "--steps", str(CAPTURE_STEPS),
+                                "--ckpt-every", str(CAPTURE_STEPS)], kernels3)
+    state_equal(restore_checkpoint(str(out3 / "ckpt"), dev), first["state"])
+    phase("capture", f"the checkpoint at step {CAPTURE_STEPS} restores bit-equal: every "
+          "parameter, the Adam and view-optimizer states, the view parameters and the "
+          "generator (MCMC keeps no DensifyState)")
+    second = run(CAPTURE_3DGS + ["--out-dir", str(out3), "--steps", str(CAPTURE_RESUME_STEPS),
+                                 "--resume"], kernels3)
+    losses = first["losses"] + second["losses"]
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    relocated = [f"{e['relocated']} at step {e['step']}"
+                 for e in first["events"] + second["events"]]
+    phase("capture", f"3DGS losses: first 10 mean {head:.6f}, last 10 mean {tail:.6f}; "
+          f"MCMC relocations: {', '.join(relocated) or 'none'}")
+    if not tail < head:
+        raise AssertionError("capture: the 3DGS loss did not fall")
+    vp = second["state"]["view_params"]
+    moved = {"pose": float(vp["pose"].abs().max()),
+             "expo": float((vp["expo"] - torch.eye(3, 4, device=dev)).abs().max()),
+             "bgrid": float((vp["bgrid"] - vp["bgrid"].new_tensor(
+                 [1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0])).abs().max())}
+    phase("capture", "view parameters off identity by (max abs) " + json.dumps(moved))
+    if min(moved.values()) <= 0:
+        raise AssertionError("capture: a view group stayed at identity")
+    ply_path = str(out3 / "scene_final.ply")
+    back = load_gaussian_ply(ply_path)
+    for k, v in second["state"]["params"].items():
+        if not np.array_equal(back[k], v.cpu().numpy()):
+            raise AssertionError(f"capture: the final PLY's {k} differs from the parameters")
+    phase("capture", "the final PLY reloads bit-equal to the final parameters")
+
+    surf = run(CAPTURE_2DGS + ["--out-dir", str(root / "out_2dgs")],
+               ("B3", "B4", "B5", "B7", "B8"))
+    head2, tail2 = float(np.mean(surf["losses"][:10])), float(np.mean(surf["losses"][-10:]))
+    phase("capture", f"2DGS losses: first 10 mean {head2:.6f}, last 10 mean {tail2:.6f}")
+    if not tail2 < head2:
+        raise AssertionError("capture: the 2DGS loss did not fall")
+
+    evals = {}
+    init_ply = str(root / "init.ply")
+    save_gaussian_ply(init_ply, init)
+    for name, ply, extra in (
+            ("trained", ply_path, ["--appearance-opt", "bilagrid", "--appearance-steps",
+                                   str(CAPTURE_EVAL_STEPS)]),
+            ("initial SfM gaussians", init_ply, [])):
+        t0 = time.perf_counter()
+        evals[name] = eval_colmap.main(["--data", str(root), "--ply", ply, "--downscale", "1",
+                                        "--every", str(CAPTURE_EVAL_EVERY)] + extra)
+        phase("capture", f"eval, {name}, in {time.perf_counter() - t0:.2f} s: "
+              + json.dumps(evals[name]))
+    if not evals["trained"]["mean_psnr"] > evals["initial SfM gaussians"]["mean_psnr"]:
+        raise AssertionError("capture: the trained scene's PSNR is not above the initial one")
+    return {"3dgs": dict.fromkeys(kernels3, 1),
+            "2dgs": dict.fromkeys(("B3", "B4", "B5", "B7", "B8"), 1)}
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -2040,8 +2355,15 @@ def main() -> int:
     launches_cameras = camera_phase(raw, sh_degree, dict(zip(
         ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), kernels, smi)
 
+    # ---- 15. The COLMAP capture path
+    launches_capture = capture_phase(raw, sh_degree, dict(zip(
+        ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), smi)
+
     for k in kernels:
         kid = k["name"][:2]
+        for family, launched in launches_capture.items():
+            if kid in launched:
+                k[f"launches_capture_{family}"] = launched[kid]
         if kid in launches_cameras:
             k["launches_cameras"] = launches_cameras[kid]
         if kid in ("B4", "B5", "B1", "B2", "B3"):

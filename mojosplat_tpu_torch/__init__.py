@@ -13,13 +13,19 @@ and MCMC density control (``densify``); the 2DGS surfel render with depth,
 normal and distortion maps (``render_surfels``) and its
 ``train.train_step_surfel``; the pinhole (with lens distortion), fisheye
 and orthographic cameras, the rolling shutter, the unscented projection and
-pose refinement (``apply_pose_delta``) in both families. Kernels: B1/B2
+pose refinement (``apply_pose_delta``) in both families; the COLMAP
+capture path: the native IO (``native``), PLY, splat, PNG, COLMAP, Blender
+and the compressed format (``utils``), checkpoints, the per-view
+appearance modules (``bilagrid``, ``train.apply_exposure``), the sparse
+depth loss, and the ``examples.train_colmap`` / ``examples.eval_colmap``
+CLIs. Kernels: B1/B2
 (3DGS tile blend and its backward), B3 (segment sum), B4 (slot
 expansion), B5 (per-tile slot slice), B6/B7 (surfel tile blend, without
 and with the maps), B8 (their backward) and B9 (the blend-variant probe,
 ``ops.raster_probe``). Importing this package never imports jax.
 """
 
+from .bilagrid import apply_bilateral_grid, bilateral_grid_tv, identity_bilateral_grid
 from .camera import Camera, apply_pose_delta, look_at
 from .config import DEFAULT_CONFIG, RenderConfig, config_from_jax
 from .render import RenderAux, render_gaussians
@@ -35,6 +41,9 @@ __all__ = [
     "render_gaussians",
     "render_surfels",
     "RenderAux",
+    "apply_bilateral_grid",
+    "bilateral_grid_tv",
+    "identity_bilateral_grid",
 ]
 
 __version__ = "0.1.0"

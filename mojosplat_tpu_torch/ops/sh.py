@@ -3,7 +3,10 @@
 Counterpart of ``mojosplat_tpu.ops.sh``: coefficients ``(N, (degree+1)^2,
 C)`` band-major, the standard 3DGS / gsplat real-SH basis evaluated as one
 ``(N, K)`` basis matrix and contracted once, and the +0.5 offset with a
-clamp at 0 in ``sh_to_color``.
+clamp at 0 in ``sh_to_color``: ``torch.maximum``, which, like the
+reference's ``jnp.maximum``, gives a colour exactly at 0 half the gradient
+(``torch.clamp`` would give it all; an SfM point with a black channel
+starts exactly there).
 """
 
 from __future__ import annotations
@@ -97,7 +100,8 @@ def sh_to_color(
 ) -> torch.Tensor:
     """View-dependent RGB: SH at (mean - cam) directions, +0.5, clamped at 0."""
     dirs = means3d - cam_position[None, :]
-    return torch.clamp(eval_sh(sh_coeffs, dirs, degree) + 0.5, min=0.0)
+    color = eval_sh(sh_coeffs, dirs, degree) + 0.5
+    return torch.maximum(color, color.new_zeros(()))
 
 
 def mask_sh_bands(features: torch.Tensor, active_degree: int) -> torch.Tensor:

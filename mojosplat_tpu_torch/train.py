@@ -73,29 +73,37 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
+    """The normalised 1D Gaussian; the SSIM window is its outer product."""
     x = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
     g = torch.exp(-(x**2) / (2.0 * sigma**2))
-    g = g / torch.sum(g)
-    return g[:, None] * g[None, :]
+    return g / torch.sum(g)
 
 
 def ssim(a: torch.Tensor, b: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Mean SSIM between two (..., H, W, C) images in [0, 1]: the 11x11
-    Gaussian-window SSIM of the 3DGS training recipe, as depthwise
-    convolutions with zero padding ("SAME").
+    Gaussian-window SSIM of the 3DGS training recipe, with zero padding
+    ("SAME").
 
-    The blurs run in full f32: cuDNN would run them in TF32 by default, and
-    the variance estimate blur(x^2) - mx^2 then loses enough digits to push
-    SSIM past 1 on flat regions (the reference met this on the TPU).
+    Each blur is the window's two 1D passes (the window is separable):
+    22 products a pixel in place of 121, and as close to the exact blur as
+    the reference's 2D convolution on the CPU (one 2D pass on the CPU lands
+    2-3x farther). The variance estimate blur(x^2) - mx^2 cancels on smooth
+    regions, so the blurs' rounding shows in the result. They run in full
+    f32: cuDNN would run them in TF32 by default, and the variance would
+    then lose enough digits to push SSIM past 1 on flat regions (the
+    reference met this on the TPU).
     """
     c1, c2 = 0.01**2, 0.03**2
-    w = _gaussian_window(window_size, 1.5, a.device)[None, None]  # (1, 1, k, k)
+    g = _gaussian_window(window_size, 1.5, a.device).to(a.dtype)
+    rows, cols = g.reshape(1, 1, -1, 1), g.reshape(1, 1, 1, -1)
+    pad = window_size // 2
     H, W, C = a.shape[-3:]
     x = a.reshape(-1, H, W, C).permute(0, 3, 1, 2).reshape(-1, 1, H, W)
     y = b.reshape(-1, H, W, C).permute(0, 3, 1, 2).reshape(-1, 1, H, W)
 
     def blur(img):
-        return torch.nn.functional.conv2d(img, w, padding=window_size // 2)
+        img = torch.nn.functional.conv2d(img, rows, padding=(pad, 0))
+        return torch.nn.functional.conv2d(img, cols, padding=(0, pad))
 
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
@@ -112,10 +120,13 @@ def dssim_l1_loss(rendered: torch.Tensor, target: torch.Tensor,
                   ssim_weight: float = 0.2) -> torch.Tensor:
     """The standard 3DGS photometric loss: (1 - w) * L1 + w * (1 - SSIM).
 
-    Where rendered == target exactly, ``torch.abs`` takes the subgradient 0
-    and the reference's ``jnp.abs`` takes 1; elsewhere the gradients agree.
+    Where rendered == target exactly (an empty background pixel against a
+    black target), |x| takes the reference's subgradient, 1 (``jnp.abs``);
+    ``torch.abs`` would take 0, and an exposure bias or bilateral grid fed
+    by such pixels would get another gradient than the reference's.
     """
-    l1 = torch.mean(torch.abs(rendered - target))
+    d = rendered - target
+    l1 = torch.mean(torch.where(d < 0, -d, d))
     return (1.0 - ssim_weight) * l1 + ssim_weight * (1.0 - ssim(rendered, target))
 
 
@@ -312,3 +323,46 @@ def train_step_surfel(
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def sparse_depth_loss(
+    depth: torch.Tensor,  # (H, W) accumulated (alpha-weighted) depth
+    alpha: torch.Tensor,  # (H, W) accumulated opacity = 1 - final transmittance
+    uv: torch.Tensor,  # (K, 2) pixel coordinates of the SfM observations
+    depth_gt: torch.Tensor,  # (K,) camera-frame z of the triangulated points
+    mask: torch.Tensor,  # (K,) bool, valid targets
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """L1 disparity loss at sparse SfM keypoints (gsplat's depth loss):
+    anchors the rendered geometry to the COLMAP triangulation. Targets come
+    from ``utils.colmap.sparse_depth_targets``.
+
+    The rendered disparity is ``alpha / (depth + eps)``: 1 / expected depth,
+    but smooth and select-free, so an uncovered pixel (alpha -> 0) adds a
+    bounded ``1 / depth_gt`` error instead of a NaN. Coordinates round half
+    to even (``torch.round``, as ``jnp.round``)."""
+    H, W = depth.shape
+    ix = torch.clamp(torch.round(uv[:, 0]).to(torch.int64), 0, W - 1)
+    iy = torch.clamp(torch.round(uv[:, 1]).to(torch.int64), 0, H - 1)
+    flat = iy * W + ix
+    d = depth.reshape(-1)[flat]
+    a = alpha.reshape(-1)[flat]
+    err = torch.abs(a / (d + eps) - 1.0 / torch.clamp(depth_gt, min=eps))
+    m = mask.to(depth.dtype)
+    return torch.sum(err * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def apply_exposure(image: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
+    """Per-view affine colour correction: (H, W, 3) image, (3, 4) affine
+    [A | b] -> image @ A^T + b, for auto-exposure and white-balance drift
+    (``train_colmap --exposure-opt``). Element-wise f32, as the reference's
+    ``precision="highest"`` einsum: no TF32 whatever the backend's flags.
+    At evaluation, render without it (or with the identity)."""
+    return (image[..., 0:1] * affine[:, 0] + image[..., 1:2] * affine[:, 1]
+            + image[..., 2:3] * affine[:, 2] + affine[:, 3])
+
+
+def identity_exposure(n_views: int, *, device: torch.device | str) -> torch.Tensor:
+    """(V, 3, 4) identity affines [I | 0] for ``apply_exposure``."""
+    eye = torch.cat([torch.eye(3, device=device), torch.zeros((3, 1), device=device)], dim=1)
+    return eye.expand(n_views, 3, 4).contiguous()

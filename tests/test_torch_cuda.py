@@ -829,3 +829,67 @@ def _surfel_geometry_all(pd, n_tiles, ts, tw, cap, cfg):
     counts = torch.full((n_tiles,), cap, dtype=torch.int32, device=pd.device)
     return _surfel_geometry(torch.arange(n_tiles, device=pd.device), pd, 0, cap, counts, ts,
                             tw, cfg, False)
+
+
+def test_colmap_cli_step_cuda_route_matches_torch(dev, tmp_path):
+    """One step loss of the train_colmap CLI (--depth-loss --pose-opt
+    --exposure-opt --bilagrid --intrinsics-opt, the default SSIM weight)
+    at tests/test_train_colmap_cli.py's 64x48 capture, its targets rendered
+    from a seeded numpy cloud: the "cuda" route (B4, B5, B1, B2 and B3 each
+    launched once) against the "torch" route on the card; the loss within
+    1e-5 and every gradient, of the gaussians and of the view groups, by
+    B2's rule."""
+    from mojosplat_tpu_torch.examples import train_colmap
+    from mojosplat_tpu_torch.ops import expand_cuda, raster_cuda, segsum_cuda, slice_cuda
+    from mojosplat_tpu_torch.utils import colmap as cm
+    from torch_colmap_cases import train_capture
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    n = 200
+    cloud = dict(means3d=rng.normal(0, 0.4, (n, 3)) + [0, 0, 2.0],
+                 scales=rng.normal(-2.0, 0.3, (n, 3)), quats=rng.normal(size=(n, 4)),
+                 opacities_raw=rng.normal(1.0, 1.0, n),
+                 features=rng.uniform(-0.5, 0.5, (n, 1, 3)))
+    capture = train_capture(tmp_path, {k: v.astype(np.float32) for k, v in cloud.items()})
+    scene = cm.load_scene(str(capture / "sparse" / "0"), with_points2d=True)
+    views, images = train_colmap.load_view_images(str(capture), scene, 1)
+    depth = [torch.from_numpy(a[1]).to(dev) for a in cm.sparse_depth_targets(scene, views, 1)]
+    raw = cm.init_gaussians_from_points(scene.points_xyz, scene.points_rgb, sh_degree=1)
+    # Anisotropic splats, so that the quaternions have a gradient.
+    raw["scales"] = (raw["scales"] + rng.normal(0, 0.3, raw["scales"].shape)).astype(np.float32)
+    raw["quats"] = rng.normal(size=raw["quats"].shape).astype(np.float32)
+    vp0 = dict(pose=rng.normal(0, 2e-3, (2, 6)),
+               expo=np.eye(3, 4) + rng.normal(0, 0.02, (2, 3, 4)),
+               intr=rng.normal(0, [1e-3, 1e-3, 0.3, 0.3], (2, 4)),
+               bgrid=np.concatenate([np.eye(3).reshape(9), np.zeros(3)])
+               + rng.normal(0, 0.02, (2, 16, 16, 8, 12)))
+    counters = (expand_cuda.segment_expand_offsets, slice_cuda.segment_slice_gather,
+                raster_cuda.raster_tiles, raster_cuda.raster_tiles_bwd,
+                segsum_cuda.segment_sum_cols)
+    out = {}
+    for route in ("torch", "cuda"):
+        args = train_colmap.build_parser().parse_args(
+            ["--data", str(capture), "--impl", route, "--sh-degree", "1", "--depth-loss", "0.05",
+             "--pose-opt", "--exposure-opt", "--bilagrid", "--intrinsics-opt"])
+        params = {k: torch.from_numpy(v).to(dev).requires_grad_(True) for k, v in raw.items()}
+        vp = {k: torch.from_numpy(v.astype(np.float32)).to(dev).requires_grad_(True)
+              for k, v in vp0.items()}
+        for fn in counters:
+            fn.launches = 0
+        loss, _ = train_colmap.step_loss(
+            params, vp, 1, scene.camera_for(views[1], 1, device=dev),
+            torch.from_numpy(images[1]).to(dev), depth, args,
+            train_colmap.render_config(args, surfels=False), 1)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[route] = (loss.item(), [t.grad for t in params.values()] + [
+            t.grad.reshape(2, -1) for t in vp.values()], [fn.launches for fn in counters])
+    (loss_t, g_t, n_t), (loss_c, g_c, n_c) = out["torch"], out["cuda"]
+    assert n_t == [0] * 5 and n_c == [1] * 5, (n_t, n_c)
+    assert abs(loss_c - loss_t) <= 1e-5 * abs(loss_t)
+    for k, (got, want) in enumerate(zip(g_c, g_t)):
+        assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0, k
+        rel = (got - want).abs() / want.abs().amax()
+        assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel() and float(rel.max()) <= 1e-3, k

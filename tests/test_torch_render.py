@@ -158,7 +158,16 @@ def test_port_imports_without_jax():
         "import mojosplat_tpu_torch.ops.segsum_cuda, mojosplat_tpu_torch.ops.raster_probe\n"
         "import mojosplat_tpu_torch.densify\n"
         "import mojosplat_tpu_torch.utils.scenes, mojosplat_tpu_torch.utils.compress\n"
+        "import mojosplat_tpu_torch.bilagrid, mojosplat_tpu_torch.native\n"
+        "import mojosplat_tpu_torch.utils.blender, mojosplat_tpu_torch.utils.checkpoint\n"
+        "import mojosplat_tpu_torch.utils.colmap, mojosplat_tpu_torch.utils.image\n"
+        "import mojosplat_tpu_torch.utils.ply, mojosplat_tpu_torch.utils.splat\n"
+        "import mojosplat_tpu_torch.examples.train_colmap\n"
+        "import mojosplat_tpu_torch.examples.eval_colmap\n"
+        "assert mojosplat_tpu_torch.native.get_native() is not None\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m.startswith('mojosplat_tpu.') or m == 'mojosplat_tpu'\n"
+        "               for m in sys.modules), 'the JAX package was imported'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

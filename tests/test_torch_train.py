@@ -136,14 +136,16 @@ def test_image_losses_match_jax():
         np.testing.assert_allclose(float(fn(ta, tb)), want, rtol=1e-5, err_msg=fn.__name__)
         np.testing.assert_allclose(float(fn(ta[0], tb[0])), float(jfn(a[0], b[0])),
                                    rtol=1e-5, err_msg=fn.__name__)
-    # The gradient away from rendered == target, where the two frameworks
-    # take another subgradient of |x| (torch 0, jax 1); the flat patches
-    # still differ, and their variances still cancel.
-    b[:, :8, :8] = 0.52
-    ga = ta.clone().requires_grad_(True)
-    ttrain.dssim_l1_loss(ga, torch.from_numpy(b)).backward()
-    want = jax.jit(jax.grad(jtrain.dssim_l1_loss))(jnp.asarray(a), jnp.asarray(b))
-    assert_grads_close(ga.grad.numpy(), np.asarray(want), "dssim grad")
+    # The gradient, with rendered == target on a flat patch (|x| takes the
+    # subgradient 1 at 0 there, as jnp.abs does) and on a flat patch that
+    # differs, whose variances still cancel.
+    for tie in (True, False):
+        if not tie:
+            b[:, :8, :8] = 0.52
+        ga = torch.from_numpy(a).requires_grad_(True)
+        ttrain.dssim_l1_loss(ga, torch.from_numpy(b)).backward()
+        want = jax.jit(jax.grad(jtrain.dssim_l1_loss))(jnp.asarray(a), jnp.asarray(b))
+        assert_grads_close(ga.grad.numpy(), np.asarray(want), f"dssim grad, tie {tie}")
 
 
 @pytest.mark.parametrize("selective", [False, True])
