@@ -172,6 +172,31 @@ exits nonzero without printing the final result line:
      4th view of the final PLY with a 20-step bilateral-grid appearance
      fit, and of the SfM initialisation: the trained mean PSNR must lie
      above the initial one.
+ 16. The scene tools (the phase 16 constants below), each CLI through its
+     main(argv) on the "cuda" route at its defaults, with the launches of
+     every kernel counted per render, frame, request, view or step (each
+     path's kernels once, nothing else): the trained scene written as a
+     3DGS PLY and its disks as a 2DGS PLY; render_sample (10k, 1080p), its
+     PNG equal to a direct render; orbit_demo on the PLY at 1080p, 24
+     frames, frame 0 equal to a direct render, the median frame time, and
+     compilation_count unchanged by a second image size; the viewer's
+     /render body for five poses, each PNG equal to a direct render, the
+     median request time, and one request on the disks (B6);
+     compress_scene to .npz with --verify (the PSNR, sizes, time) and back,
+     the round trip equal to load_compressed_scene; extract_mesh on the
+     disks (16 views at 640x480, 192^3): the stage times, the observed
+     share, the mesh's counts and face indices, one view's alpha and
+     expected depth against the "torch" route by the route rule, and the
+     card's TSDF against the CPU's; tests/test_mesh.py's surfel sphere
+     reconstructed on the card within that test's radius bounds;
+     train_demo (defaults, and with MCMC every 100 steps),
+     train_surfel_demo and train_blender (a Blender capture of the trained
+     scene at 800x800, MCMC, 300 steps), each fitted or test PSNR above the
+     initial one, with the median step time; a torch.profiler trace of one
+     phase-7 train_step holding its annotated region, roofline_report of
+     that step on the H100's peaks, amortized_ms of the 1080p render
+     against cuda_ms_queued, and the dense oracle against the "cuda" route
+     by the B1 rule.
 
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
@@ -186,7 +211,8 @@ The line before the last is a JSON object with each kernel's launches in
 one training step of its path (B6: in the render without maps; B9: in the
 probe's run, one entry per variant; launches_cameras: in one pose step of
 phase 14 for B1-B5, in the ortho disks' backward for B6 and B8;
-launches_capture_3dgs / _2dgs: in each step of phase 15's runs), its max
+launches_capture_3dgs / _2dgs: in each step of phase 15's runs;
+launches_scene_tools: per unit of each phase 16 tool that runs it), its max
 abs error against the plain version, its times and its bound (for B6-B8,
 as for B1 and B2, counting the per-pair work only on the walked pairs
 whose (pixel row, slot) pair the row test keeps, plus the row tests; B9
@@ -198,6 +224,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import re
@@ -355,6 +382,28 @@ CAPTURE_3DGS = ["--downscale", "1", "--max-gaussians", "1048576", "--tight-cull"
 CAPTURE_STEPS, CAPTURE_RESUME_STEPS = 100, 150  # checkpointed at CAPTURE_STEPS
 CAPTURE_2DGS = ["--downscale", "1", "--primitive", "2dgs", "--strategy", "mcmc", "--steps", "30"]
 CAPTURE_EVAL_EVERY, CAPTURE_EVAL_STEPS = 4, 20
+
+# Phase 16, the scene tools, each CLI at its defaults through main(argv) on
+# the "cuda" route. The scene files are the trained scene's 3DGS PLY and
+# its disks' 2DGS PLY (the first two log-scales, as phase 9 reads them).
+# train_blender trains on a Blender capture at NeRF-synthetic's frame size
+# (800x800 RGBA; the public lego split has 100 train and 200 test views,
+# cut to BLENDER_TEST for the phase's time): the "cuda"-route renders of the
+# trained scene, their alpha 1 - T, from poses within BLENDER_YAW_DEG /
+# BLENDER_PITCH_DEG of the scene camera about its look-at point (a golden-
+# ratio spread), at the scene camera's focal (0.72 W), for BLENDER_STEPS
+# steps with MCMC. The viewer answers VIEWER_POSES (azimuth, elevation) at
+# its start radius. tsdf_fuse on the card against the CPU: the TSDF within
+# TSDF_ATOL where the weights agree, the weights differing on under
+# TSDF_MAX_FLIP_SHARE of the voxels (a 1e-7 sample difference flips a
+# threshold). amortized_ms within AMORTIZED_MAX_REL of cuda_ms_queued. The
+# dense oracle at ORACLE_HW^2 with ORACLE_N seeded gaussians (B1's rule).
+BLENDER_SIZE, BLENDER_TRAIN, BLENDER_TEST, BLENDER_STEPS = 800, 100, 25, 300
+BLENDER_YAW_DEG, BLENDER_PITCH_DEG = 30.0, 10.0
+VIEWER_POSES = ((0.0, 0.25), (0.8, 0.1), (1.6, -0.2), (3.0, 0.4), (4.5, 0.0))
+TSDF_ATOL, TSDF_MAX_FLIP_SHARE = 1e-5, 1e-4
+AMORTIZED_MAX_REL = 0.1
+ORACLE_HW, ORACLE_N = 256, 2000
 
 
 def phase(name: str, msg: str) -> None:
@@ -1889,6 +1938,408 @@ def capture_phase(raw: dict, sh_degree: int, counters: dict, smi: str) -> dict:
             "2dgs": dict.fromkeys(("B3", "B4", "B5", "B7", "B8"), 1)}
 
 
+def write_blender_capture(root: Path, raw: dict, sh_degree: int) -> None:
+    """Phase 16's Blender capture (see its constants) under ``root``: the
+    "cuda" route's renders of the trained scene as straight-alpha RGBA."""
+    from mojosplat_tpu_torch import Camera, RenderConfig, render_gaussians
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.train import activate
+    from mojosplat_tpu_torch.utils.image import to_uint8
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+    from torch_scene_tools_cases import write_blender_split
+
+    dev = torch.device("cuda", 0)
+    S = BLENDER_SIZE
+    base = scene_camera(S, S, device="cpu")
+    target = np.array([0.0, 0.4, 0.0])
+    eye0 = (-base.R.double().T @ base.T.double()).numpy()
+    poses = []
+    for j in range(BLENDER_TRAIN + BLENDER_TEST):
+        yaw = math.radians(BLENDER_YAW_DEG * (2.0 * ((j * 0.6180339887) % 1.0) - 1.0))
+        pitch = math.radians(BLENDER_PITCH_DEG * (2.0 * ((j * 0.7548776662 + 0.5) % 1.0) - 1.0))
+        ry = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                       [-math.sin(yaw), 0, math.cos(yaw)]])
+        rx = np.array([[1, 0, 0], [0, math.cos(pitch), -math.sin(pitch)],
+                       [0, math.sin(pitch), math.cos(pitch)]])
+        eye = target + ry @ rx @ (eye0 - target)
+        forward = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(forward, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(forward, right), forward])
+        poses.append((R.astype(np.float32), (-R @ eye).astype(np.float32)))
+    p = activate(params_from_numpy(raw, dev))
+    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    fx = float(base.fx)
+
+    def frame(R, T):
+        cam = Camera.create(R=R, T=T, H=S, W=S, fx=fx, fy=fx, cx=S / 2, cy=S / 2, device=dev)
+        with torch.no_grad():
+            img, aux = render_gaussians(*(p[k] for k in KEYS), cam, sh_degree=sh_degree,
+                                        config=cfg, return_aux=True)
+        alpha = 1.0 - aux.raster.final_transmittance
+        rgb = torch.clamp(img / torch.clamp(alpha, min=1e-6)[..., None], 0.0, 1.0)
+        return to_uint8(torch.cat([rgb, alpha[..., None]], dim=-1).cpu().numpy())
+
+    angle_x = 2.0 * math.atan(0.5 * S / fx)
+    for split, sel in (("train", poses[:BLENDER_TRAIN]), ("test", poses[BLENDER_TRAIN:])):
+        write_blender_split(str(root), split, sel, [frame(R, T) for R, T in sel], angle_x)
+
+
+def scene_tools_phase(raw: dict, sh_degree: int, counters: dict, smi: str) -> dict:
+    """Phase 16: the scene tools through their CLIs' ``main(argv)`` on the
+    "cuda" route (see the constants above), and the profiling and metrics
+    utilities. Returns, per kernel, its launches per unit of each tool
+    that runs it (a render, frame, request, view or view-step; every count
+    is checked exactly) (counters: name -> wrapper of B4, B5, B1, B2, B3,
+    B9)."""
+    sys.path.insert(0, str(ROOT / "tests"))  # the shared cases: numpy, no JAX
+    from PIL import Image
+
+    from mojosplat_tpu_torch import Camera, RenderConfig, look_at, render_gaussians
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.examples import (
+        compress_scene, extract_mesh, orbit_demo, render_sample, train_blender, train_demo,
+        train_surfel_demo, viewer)
+    from mojosplat_tpu_torch.ops.binning import bin_gaussians_to_tiles
+    from mojosplat_tpu_torch.ops.projection import project_gaussians
+    from mojosplat_tpu_torch.ops.rasterization import rasterize_dense_oracle, rasterize_gaussians
+    from mojosplat_tpu_torch.ops.surfel_cuda import raster_surfel_tiles_bwd, raster_surfel_tiles_fwd
+    from mojosplat_tpu_torch.train import activate, make_optimizer, train_step
+    from mojosplat_tpu_torch.utils import (
+        amortized_ms, annotate, compilation_count, load_gaussian_ply, roofline_report,
+        save_gaussian_ply, to_uint8, trace)
+    from mojosplat_tpu_torch.utils.compress import load_compressed_scene
+    from mojosplat_tpu_torch.utils.mesh import tsdf_fuse
+    from mojosplat_tpu_torch.utils.profiling import CHIP_PEAKS
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+    from torch_scene_tools_cases import (
+        SPHERE_MEDIAN_VOXELS, SPHERE_P90_VOXELS, reconstruct_sphere)
+
+    dev = torch.device("cuda", 0)
+    fns = dict(counters, B8=raster_surfel_tiles_bwd)
+    peaks = CHIP_PEAKS["h100"]
+    if (peaks["hbm_gbps"] * 1e9, peaks["vpu_tflops"] * 1e12) != (HBM_BYTES_PER_S, F32_OPS_PER_S):
+        raise AssertionError("tools: utils.profiling's H100 peaks differ from bound()'s")
+    root = ROOT / "build" / "scene_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    per_unit = {}
+
+    def reset():
+        for fn in fns.values():
+            fn.launches = 0
+        raster_surfel_tiles_fwd.launches = raster_surfel_tiles_fwd.launches_maps = 0
+
+    def launched() -> dict:
+        out = {k: fn.launches for k, fn in fns.items()}
+        out["B6"] = raster_surfel_tiles_fwd.launches
+        out["B7"] = raster_surfel_tiles_fwd.launches_maps
+        return out
+
+    def expect(name, got, per, kernels, tool=None):
+        want = {k: per if k in kernels else 0 for k in got}
+        if got != want:
+            raise AssertionError(f"{name}: launched {got}; expected {per} each of {kernels} "
+                                 "and nothing else")
+        if tool:
+            for k in kernels:
+                per_unit.setdefault(k, {})[tool] = 1
+
+    def read_png(src) -> np.ndarray:
+        return np.asarray(Image.open(src).convert("RGB"))
+
+    def stepper(name, per, kernels, tool):
+        """An on_step hook: every step after the first (whose count also
+        holds the CLI's target and initial renders) launches ``per`` of each
+        of ``kernels`` and nothing else; each step's time."""
+        log = dict(ms=[], t=0.0)
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if step:
+                expect(f"{name} step {step}", launched(), per, kernels, tool)
+            log["ms"].append((now - log["t"]) * 1e3)
+            log["t"] = now
+            reset()
+
+        reset()
+        torch.cuda.synchronize()
+        log["t"] = time.perf_counter()
+        return log, on_step
+
+    # ---- The scene files, with the port's writers
+    ply3, ply2 = str(root / "scene_3dgs.ply"), str(root / "scene_2dgs.ply")
+    t0 = time.perf_counter()
+    save_gaussian_ply(ply3, raw)
+    save_gaussian_ply(ply2, dict(raw, scales=raw["scales"][:, :2]))
+    phase("tools", f"scene PLYs written in {time.perf_counter() - t0:.2f} s: 3DGS "
+          f"{Path(ply3).stat().st_size / 1e6:.1f} MB, 2DGS "
+          f"{Path(ply2).stat().st_size / 1e6:.1f} MB")
+    p3 = activate(params_from_numpy(load_gaussian_ply(ply3), dev))
+
+    # ---- render_sample at its defaults
+    d = render_sample.build_parser().parse_args([])
+    reset()
+    out = render_sample.main(["--out", str(root / "render_sample.png")])
+    expect("render_sample", launched(), out["renders"], ("B4", "B5", "B1"),
+           "render_sample per render")
+    demo = render_sample.random_scene(d.gaussians, d.seed, device=dev)
+    with torch.no_grad():
+        direct = render_gaussians(*(demo[k] for k in KEYS),
+                                  render_sample.demo_camera(d.height, d.width, device=dev),
+                                  background_color=render_sample.BACKGROUND,
+                                  config=render_sample.demo_config("cuda"))
+    if not np.array_equal(read_png(root / "render_sample.png"), to_uint8(direct.cpu().numpy())):
+        raise AssertionError("render_sample: the PNG differs from the direct render")
+    phase("tools", f"render_sample ({d.gaussians} gaussians, {d.width}x{d.height}): first render "
+          f"{out['seconds'][0] * 1e3:.1f} ms, steady {out['seconds'][1] * 1e3:.1f} ms (host "
+          f"clock, fenced); the PNG equals the direct render; B4, B5, B1 once a render; {smi}")
+
+    # ---- orbit_demo on the 3DGS PLY at 1080p, then another image size
+    builds = compilation_count()
+    reset()
+    orbit = orbit_demo.main(["--ply", ply3, "--height", str(H), "--width", str(W),
+                             "--out-dir", str(root / "orbit")])
+    expect("orbit", launched(), orbit["frames"], ("B4", "B5", "B1"), "orbit per frame")
+    cam0 = orbit_demo.orbit_camera(0.0, 5.0, H, W, 0.7 * W, device=dev)
+    frame0 = orbit_demo.render_frame(p3, cam0, sh_degree, orbit_demo.orbit_config("cuda"))
+    if not np.array_equal(read_png(root / "orbit" / "frame_000.png"),
+                          to_uint8(frame0.cpu().numpy())):
+        raise AssertionError("orbit: frame 0 differs from the direct render")
+    orbit_demo.main(["--ply", ply3, "--frames", "4", "--out-dir", str(root / "orbit_small")])
+    if compilation_count() != builds:
+        raise AssertionError(f"orbit: another image size grew compilation_count "
+                             f"({builds} -> {compilation_count()})")
+    phase("tools", f"orbit ({raw['means3d'].shape[0]} gaussians, {W}x{H}, {orbit['frames']} "
+          f"frames, PNG written): median frame {statistics.median(orbit['frame_ms']):.1f} ms (host clock; render, readback "
+          f"and PNG), first {orbit['frame_ms'][0]:.1f} ms; frame 0 equals the direct render; "
+          f"B4, B5, B1 once a frame; compilation_count {builds} before and after 640x360; {smi}")
+
+    # ---- viewer: five requests on the 3DGS PLY, one on the disks
+    v = viewer.build_viewer(["--ply", ply3])
+    vcfg = RenderConfig(raster_impl="cuda", tile_capacity=512, chunk_size=64)
+    req_ms = []
+    for az, el in VIEWER_POSES:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        body = v.png(az, el, v.radius0)
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        expect("viewer request", launched(), 1, ("B4", "B5", "B1"), "viewer per request")
+        eye = v.center + v.radius0 * np.array(
+            [math.sin(az) * math.cos(el), math.sin(el), math.cos(az) * math.cos(el)])
+        R, T = look_at(eye=eye.astype(np.float32), target=v.center.astype(np.float32),
+                       up=[0.0, 1.0, 0.0], device=dev)
+        cam = Camera.create(R=R, T=T, H=v.H, W=v.W, fx=v.focal, fy=v.focal, cx=v.W / 2,
+                            cy=v.H / 2, device=dev)
+        with torch.no_grad():
+            want = render_gaussians(*(p3[k] for k in KEYS), cam, sh_degree=sh_degree,
+                                    background_color=viewer.BACKGROUND, config=vcfg)
+        if not np.array_equal(read_png(io.BytesIO(body)), to_uint8(want.cpu().numpy())):
+            raise AssertionError(f"viewer: the PNG at ({az}, {el}) differs from the direct render")
+    vsize = f"{v.W}x{v.H}"
+    del v
+    v2 = viewer.build_viewer(["--ply", ply2])
+    reset()
+    body2 = v2.png(0.5, 0.2, v2.radius0)
+    expect("viewer (disks)", launched(), 1, ("B4", "B5", "B6"), "viewer per request")
+    del v2
+    phase("tools", f"viewer ({vsize}): {len(VIEWER_POSES)} requests, median "
+          f"{statistics.median(req_ms):.1f} ms (host clock, render and PNG encode), each PNG "
+          f"equal to the direct render, B4, B5, B1 once a request; the disks' PLY: one request "
+          f"through B6 ({len(body2)} bytes); {smi}")
+
+    # ---- compress_scene: PLY -> .npz with --verify, then back
+    npz = str(root / "scene.npz")
+    t0 = time.perf_counter()
+    stats = compress_scene.main([ply3, npz, "--verify"])
+    t_all = time.perf_counter() - t0
+    rt = str(root / "roundtrip.ply")
+    compress_scene.main([npz, rt])
+    back, want = load_gaussian_ply(rt), load_compressed_scene(npz)
+    for k in want:
+        if not np.array_equal(back[k], want[k]):
+            raise AssertionError(f"compress: the round trip's {k} differs from the .npz's")
+    phase("tools", f"compress_scene: {Path(ply3).stat().st_size / 1e6:.1f} MB PLY -> "
+          f"{Path(npz).stat().st_size / 1e6:.2f} MB .npz ({stats['ratio']:.2f}x against float32) "
+          f"in {t_all:.2f} s with the verify ({stats['verify_s']:.2f} s); render PSNR "
+          f"{stats['psnr']:.2f} dB; the .npz -> PLY round trip equals load_compressed_scene")
+
+    # ---- extract_mesh on the disks' PLY at its defaults
+    d = extract_mesh.build_parser().parse_args([ply2, "mesh.ply"])
+    reset()
+    mesh = extract_mesh.main([ply2, str(root / "mesh.ply")])
+    views = len(mesh["cameras"])
+    expect("extract_mesh", launched(), views, ("B4", "B5", "B7"), "extract_mesh per view")
+    faces = mesh["faces"]
+    if not (len(faces) and faces.min() >= 0 and faces.max() < len(mesh["verts"])):
+        raise AssertionError("extract_mesh: empty mesh or a face index out of range")
+    times = mesh["times"]
+    phase("tools", f"extract_mesh ({raw['means3d'].shape[0]} disks, {views} views at "
+          f"{d.width}x{d.height}, {d.res}^3): render "
+          f"{times['render']:.2f} s, fuse {times['fuse']:.2f} s, extract {times['extract']:.2f} s "
+          f"(host clock); {mesh['observed'] * 100:.1f}% observed; {len(mesh['verts'])} verts, "
+          f"{len(faces)} faces; B4, B5, B7 once a view; {smi}")
+    pd = activate(params_from_numpy(load_gaussian_ply(ply2), dev))
+    ed_t, al_t = extract_mesh.depth_view(pd, mesh["cameras"][0], sh_degree,
+                                         extract_mesh.mesh_config("torch"))
+    ed_c, al_c = mesh["depths"][0], mesh["alphas"][0]
+    blend_agreement("tools extract_mesh alpha vs torch route", al_c, al_t,
+                    row_scale(al_t, (0, 1)), ROUTE_MAX_SHARE, ROUTE_MAX_ERR)
+    both = (al_c > 1e-3) & (al_t > 1e-3)
+    one = int(((al_c > 1e-3) != (al_t > 1e-3)).sum())
+    if one > ROUTE_MAX_SHARE * al_t.numel():
+        raise AssertionError(f"extract_mesh: {one} pixels covered on one route only")
+    blend_agreement("tools extract_mesh expected depth vs torch route (both covered)",
+                    ed_c[both], ed_t[both], row_scale(ed_t[both], 0), ROUTE_MAX_SHARE,
+                    ROUTE_MAX_ERR)
+    t0 = time.perf_counter()
+    tsdf_h, w_h, _, _ = tsdf_fuse([d.cpu() for d in mesh["depths"]],
+                                  [a.cpu() for a in mesh["alphas"]],
+                                  [dataclasses.replace(c, **{
+                                      f.name: getattr(c, f.name).cpu()
+                                      for f in dataclasses.fields(c)
+                                      if isinstance(getattr(c, f.name), torch.Tensor)})
+                                   for c in mesh["cameras"]], mesh["bounds"], d.res,
+                                  alpha_floor=d.alpha_floor)
+    t_cpu = time.perf_counter() - t0
+    flips = int((w_h != mesh["weight"]).sum())
+    same = w_h == mesh["weight"]
+    err = float(np.abs(tsdf_h[same] - mesh["tsdf"][same]).max())
+    phase("tools", f"tsdf_fuse on the card against the CPU ({t_cpu:.2f} s there): {one} pixels "
+          f"covered on one route only; {flips} of {w_h.size} voxels' weights differ; TSDF max "
+          f"abs diff {err:.3e} where they agree")
+    if flips >= TSDF_MAX_FLIP_SHARE * w_h.size or err > TSDF_ATOL:
+        raise AssertionError("extract_mesh: the card's TSDF disagrees with the CPU's")
+    del mesh, pd, ed_t, al_t
+
+    # ---- The quality check: tests/test_mesh.py's surfel sphere
+    sphere = reconstruct_sphere("cuda", dev)
+    phase("tools", f"surfel sphere on the card: {len(sphere['verts'])} verts, "
+          f"{len(sphere['faces'])} faces, radius error median {sphere['median_voxels']:.3f} "
+          f"voxels (bound {SPHERE_MEDIAN_VOXELS}), 90th percentile {sphere['p90_voxels']:.3f} "
+          f"(bound {SPHERE_P90_VOXELS})")
+    if not (sphere["median_voxels"] < SPHERE_MEDIAN_VOXELS
+            and sphere["p90_voxels"] < SPHERE_P90_VOXELS and len(sphere["faces"]) > 1000):
+        raise AssertionError("tools: the sphere's reconstruction misses tests/test_mesh.py's "
+                             "bounds")
+
+    # ---- The training demos
+    d = train_demo.build_parser().parse_args([])
+    for extra in ([], ["--densify-every", "100", "--strategy", "mcmc"]):
+        log, hook = stepper("train_demo", d.views, ("B1", "B2", "B3", "B4", "B5"),
+                            "train_demo per view-step")
+        res = train_demo.main(["--out-dir", str(root / "train_demo")] + extra, on_step=hook)
+        phase("tools", f"train_demo {' '.join(extra) or '(defaults)'}: PSNR "
+              f"{res['initial_psnr']:.2f} -> {res['final_psnr']:.2f} dB, median step "
+              f"{statistics.median(log['ms'][1:]):.2f} ms ({d.views} views at "
+              f"{d.width}x{d.height}, host clock), "
+              f"events {json.dumps(res['events'])}; B1-B5 once a view-step; {smi}")
+        if not res["final_psnr"] > res["initial_psnr"]:
+            raise AssertionError("train_demo: the PSNR did not rise")
+    d = train_surfel_demo.build_parser().parse_args([])
+    log, hook = stepper("train_surfel_demo", d.views, ("B3", "B4", "B5", "B7", "B8"),
+                        "train_surfel_demo per view-step")
+    res = train_surfel_demo.main(["--out-dir", str(root / "train_surfel_demo")], on_step=hook)
+    phase("tools", f"train_surfel_demo: PSNR {res['initial_psnr']:.2f} -> "
+          f"{res['final_psnr']:.2f} dB, median step {statistics.median(log['ms'][1:]):.2f} ms "
+          f"({d.views} views at {d.width}x{d.height}); B3-B5, B7, B8 once a view-step; {smi}")
+    if not res["final_psnr"] > res["initial_psnr"]:
+        raise AssertionError("train_surfel_demo: the PSNR did not rise")
+
+    blender = root / "blender"
+    t0 = time.perf_counter()
+    write_blender_capture(blender, raw, sh_degree)
+    phase("tools", f"Blender capture: {BLENDER_TRAIN} + {BLENDER_TEST} views at "
+          f"{BLENDER_SIZE}x{BLENDER_SIZE} RGBA written in {time.perf_counter() - t0:.2f} s")
+    argv = ["--data", str(blender), "--steps", str(BLENDER_STEPS), "--strategy", "mcmc",
+            "--out-dir", str(root / "train_blender")]
+    log, hook = stepper("train_blender", 1, ("B1", "B2", "B3", "B4", "B5"),
+                        "train_blender per step")
+    res = train_blender.main(argv, on_step=hook)
+    args = train_blender.build_parser().parse_args(argv)
+    psnr0 = train_blender.eval_test(res["initial"], args, train_blender.blender_config(args),
+                                    dev)[0]
+    phase("tools", f"train_blender ({BLENDER_STEPS} steps, MCMC, downscale {args.downscale}, "
+          f"{args.gaussians} gaussians, SH {args.sh_degree}): test PSNR {psnr0:.2f} -> "
+          f"{res['test_psnr']:.2f} dB over {BLENDER_TEST} views, median step {statistics.median(log['ms'][1:]):.2f} ms, relocations "
+          f"{json.dumps(res['events'])}; B1-B5 once a step; {smi}")
+    if not res["test_psnr"] > psnr0:
+        raise AssertionError("train_blender: the test PSNR did not rise")
+
+    # ---- The utilities on the trained scene at 1080p (phase 7's step)
+    cam = scene_camera(H, W, device=dev)
+    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    leaves = perturbed_leaves(raw, dev)
+    opt = make_optimizer(leaves, lr=TRAIN_LR)
+    with torch.no_grad():
+        target = render_gaussians(*(p3[k] for k in KEYS), cam, sh_degree=sh_degree, config=cfg)
+        _, aux = render_gaussians(*(activate(leaves)[k] for k in KEYS), cam,
+                                  sh_degree=sh_degree, config=cfg, return_aux=True)
+
+    def step():
+        return train_step(leaves, opt, [cam], target[None], sh_degree=sh_degree, config=cfg)
+
+    step()
+    logdir = root / "trace"
+    with trace(str(logdir)):
+        with annotate("train_step"):
+            step()
+        torch.cuda.synchronize()
+    events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not any(e.get("name") == "train_step" for e in events):
+        raise AssertionError("tools: the trace holds no annotated region")
+    phase("tools", f"trace of one train_step: {len(events)} events, the 'train_step' region, "
+          f"{len(kernels)} device kernels ({sum(e.get('dur', 0) for e in kernels) / 1e3:.3f} ms "
+          f"of kernel time)")
+    step_ms = cuda_ms(step, 5, 0)
+    report = roofline_report(step_ms, H * W, int(aux.binning.num_isects), raw["means3d"].shape[0],
+                             sh_bases=(sh_degree + 1) ** 2, tile_size=cfg.tile_size)
+    phase("tools", "roofline_report(chip='h100') of phase 7's step (median of 5 "
+          f"{step_ms:.3f} ms): " + json.dumps(report.as_dict()) + f"; {smi}")
+    del leaves, opt
+
+    p_args = tuple(p3[k] for k in KEYS)
+
+    def render(*a):
+        return render_gaussians(*a, cam, sh_degree=sh_degree, background_color=BACKGROUND,
+                                config=cfg)
+
+    with torch.no_grad():
+        amort = amortized_ms(render, p_args, 20)
+        queued = cuda_ms_queued(lambda: render(*p_args), 20, 3)
+    phase("tools", f"amortized_ms of the 1080p render {amort:.3f} ms, cuda_ms_queued "
+          f"{queued:.3f} ms ({abs(amort - queued) / queued * 100:.2f}% apart)")
+    if abs(amort - queued) > AMORTIZED_MAX_REL * queued:
+        raise AssertionError("tools: amortized_ms disagrees with cuda_ms_queued")
+
+    rng = np.random.default_rng(7)
+    n = ORACLE_N
+    means = np.concatenate([rng.normal(0, 1.0, (n, 2)), rng.uniform(2.0, 6.0, (n, 1))], 1)
+    og = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in dict(
+        means3d=means, scales=rng.normal(-2.6, 0.4, (n, 3)), quats=rng.normal(size=(n, 4)),
+        opacities=rng.uniform(0.05, 0.95, n), features=rng.uniform(0, 1, (n, 3))).items()}
+    S = ORACLE_HW
+    ocam = Camera.create(R=np.eye(3), T=np.zeros(3), H=S, W=S, fx=200.0, fy=200.0, cx=S / 2,
+                         cy=S / 2, device=dev)
+    ocfg = RenderConfig(raster_impl="cuda", isect_padding_multiplier=16)
+    with torch.no_grad():
+        proj = project_gaussians(og["means3d"], og["scales"], og["quats"], og["opacities"],
+                                 ocam, ocfg)
+        bins = bin_gaussians_to_tiles(proj.means2d, proj.radii, proj.depths, S, S, ocfg)
+        bg = torch.tensor(BACKGROUND, device=dev)
+        img, oaux = rasterize_gaussians(proj.means2d, proj.conics, og["features"],
+                                        og["opacities"], bg, bins, S, S, ocfg)
+        oracle = rasterize_dense_oracle(proj.means2d, proj.conics, og["features"],
+                                        og["opacities"], bg, proj.depths, proj.radii, S, S, ocfg)
+    if int(oaux.tile_overflow) or int(bins.aux.capacity_overflow):
+        raise AssertionError("tools: the oracle's scene overflows a budget")
+    blend_agreement(f"tools dense oracle vs cuda route ({n} gaussians, {S}x{S})", img, oracle)
+    return per_unit
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -2359,6 +2810,10 @@ def main() -> int:
     launches_capture = capture_phase(raw, sh_degree, dict(zip(
         ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), smi)
 
+    # ---- 16. The scene tools and the profiling utilities
+    launches_tools = scene_tools_phase(raw, sh_degree, dict(zip(
+        ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), smi)
+
     for k in kernels:
         kid = k["name"][:2]
         for family, launched in launches_capture.items():
@@ -2366,6 +2821,8 @@ def main() -> int:
                 k[f"launches_capture_{family}"] = launched[kid]
         if kid in launches_cameras:
             k["launches_cameras"] = launches_cameras[kid]
+        if kid in launches_tools:
+            k["launches_scene_tools"] = launches_tools[kid]
         if kid in ("B4", "B5", "B1", "B2", "B3"):
             k["launches"] = launches_train[["B4", "B5", "B1", "B2", "B3"].index(kid)]
         if kid in ("B4", "B5", "B1"):

@@ -18,7 +18,13 @@ capture path: the native IO (``native``), PLY, splat, PNG, COLMAP, Blender
 and the compressed format (``utils``), checkpoints, the per-view
 appearance modules (``bilagrid``, ``train.apply_exposure``), the sparse
 depth loss, and the ``examples.train_colmap`` / ``examples.eval_colmap``
-CLIs. Kernels: B1/B2
+CLIs; the scene tools: TSDF fusion and marching tetrahedra
+(``utils.mesh``), profiling and metrics (``utils.profiling``,
+``utils.metrics``), the dense oracle
+(``ops.rasterization.rasterize_dense_oracle``) and the demo CLIs
+(``examples.render_sample``, ``orbit_demo``, ``viewer``,
+``compress_scene``, ``extract_mesh``, ``train_demo``,
+``train_surfel_demo``, ``train_blender``). Kernels: B1/B2
 (3DGS tile blend and its backward), B3 (segment sum), B4 (slot
 expansion), B5 (per-tile slot slice), B6/B7 (surfel tile blend, without
 and with the maps), B8 (their backward) and B9 (the blend-variant probe,

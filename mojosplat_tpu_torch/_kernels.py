@@ -63,6 +63,10 @@ _SIGNATURES = {
 }
 SHAPE_KEYS = ("registers", "shared_bytes", "local_bytes", "threads", "cluster",
               "blocks_per_sm", "clusters")
+# This process's nvcc builds of the library and its loads
+# (``utils.metrics.compilation_count``).
+compiles = 0
+loads = 0
 
 
 def sources() -> list[Path]:
@@ -97,6 +101,7 @@ def build() -> tuple[Path, str]:
     name and renamed, so a concurrent process never loads a half-written
     file.
     """
+    global compiles
     out_dir = BUILD_ROOT / _source_hash()
     lib = out_dir / LIB_NAME
     log = out_dir / "nvcc.log"
@@ -130,14 +135,17 @@ def build() -> tuple[Path, str]:
         text = "".join(report)
         log.write_text(text)
         os.replace(tmp, lib)
+    compiles += 1
     return lib, text
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
+    global loads
     path, _ = build()
     lib = ctypes.CDLL(str(path))
+    loads += 1
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -27,6 +27,10 @@ Two routes:
     the blend reads; the binning outputs are integers and carry none. On CPU tensors every kernel runs
     its plain version.
 
+``rasterize_dense_oracle`` is the reference's O(H*W*N) oracle: a global
+depth sort and an analytic tile-membership test, sharing no binning or
+table code with the routes, for tests to hold both routes to.
+
 An ``absgrad_sink`` (zero (N, 2)) collects, per gaussian, the sum over
 tiles of |d loss / d means2d restricted to that tile|: on the ``"torch"``
 route through a tap on every (tile, slot) centre (``_AbsTap``), on the
@@ -281,3 +285,84 @@ def rasterize_torch_generic(alpha_fn, n: int, colors, background, binning,
     image = _assemble(out_tiles.transpose(1, 2), th, tw, ts, img_height, img_width)
     final_T = _assemble(T_tiles[:, None, :], th, tw, ts, img_height, img_width)
     return image, RasterAux(final_transmittance=final_T[..., 0], tile_overflow=tile_overflow)
+
+
+def rasterize_dense_oracle(
+    means2d: torch.Tensor,  # (N, 2)
+    conics: torch.Tensor,  # (N, 3)
+    colors: torch.Tensor,  # (N, C)
+    opacities: torch.Tensor,  # (N,)
+    background: torch.Tensor,  # (C,)
+    depths: torch.Tensor,  # (N,)
+    radii: torch.Tensor,  # (N, 2) int32
+    img_height: int,
+    img_width: int,
+    config: RenderConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """O(H*W*N) oracle: global depth sort + analytic tile-membership test.
+
+    The reference's ``rasterize_dense_oracle``: independent of the binning
+    sort and the tile table, so it cross-validates both routes. Every pixel
+    walks all gaussians in depth order, ``chunk_size`` at a time with the
+    blender's ``_pixel_alphas`` / ``_blend_chunk`` rule, keeping those
+    whose tile bounds (binning's, with the same symmetric span truncation)
+    hold the pixel's tile. Small scenes only (tests).
+    """
+    ts = config.tile_size
+    th, tw = num_tiles(img_height, img_width, ts)
+    N = means2d.shape[0]
+    K = config.chunk_size
+    dtype = colors.dtype
+    device = colors.device
+    C = colors.shape[-1]
+
+    valid = (radii[:, 0] > 0) & (radii[:, 1] > 0)
+    inf = torch.full_like(depths, float("inf"))
+    order = torch.argsort(torch.where(valid, depths, inf), stable=True)
+    means_s, conics_s, colors_s = means2d[order], conics[order], colors[order]
+    opac_s, valid_s = opacities[order], valid[order]
+    radii_s = radii[order].to(dtype)
+
+    # The same truncated tile bounds as binning.
+    x, y = means_s[:, 0], means_s[:, 1]
+    tx_min = torch.clamp(torch.floor((x - radii_s[:, 0]) / ts), 0, tw).to(torch.int32)
+    tx_max = torch.clamp(torch.ceil((x + radii_s[:, 0]) / ts), 0, tw).to(torch.int32)
+    ty_min = torch.clamp(torch.floor((y - radii_s[:, 1]) / ts), 0, th).to(torch.int32)
+    ty_max = torch.clamp(torch.ceil((y + radii_s[:, 1]) / ts), 0, th).to(torch.int32)
+    span = config.max_tile_span
+    ex_x = torch.clamp(tx_max - tx_min - span, min=0)
+    ex_y = torch.clamp(ty_max - ty_min - span, min=0)
+    tx_min = tx_min + ex_x // 2
+    tx_max = torch.minimum(tx_max - (ex_x - ex_x // 2), tx_min + span)
+    ty_min = ty_min + ex_y // 2
+    ty_max = torch.minimum(ty_max - (ex_y - ex_y // 2), ty_min + span)
+
+    # The pixel grid, row-major.
+    yy = torch.arange(img_height, dtype=dtype, device=device) + 0.5
+    xx = torch.arange(img_width, dtype=dtype, device=device) + 0.5
+    px = xx.repeat(img_height)
+    py = yy.repeat_interleave(img_width)
+    ptx = torch.div(px, ts, rounding_mode="floor").to(torch.int32)
+    pty = torch.div(py, ts, rounding_mode="floor").to(torch.int32)
+    P = img_height * img_width
+
+    T = torch.ones((P,), dtype=dtype, device=device)
+    done = torch.zeros((P,), dtype=torch.bool, device=device)
+    accum = torch.zeros((P, C), dtype=dtype, device=device)
+    for k0 in range(0, N, K):
+        sl = slice(k0, min(k0 + K, N))
+        pad = K - (sl.stop - sl.start)  # the last chunk, padded with no-ops
+
+        def chunk(a):
+            return torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (0, pad))
+
+        m, cn, cl, op = (chunk(a[sl]) for a in (means_s, conics_s, colors_s, opac_s))
+        vd = chunk(valid_s[sl])
+        x0, x1, y0, y1 = (chunk(a[sl]) for a in (tx_min, tx_max, ty_min, ty_max))
+        member = ((ptx[:, None] >= x0[None, :]) & (ptx[:, None] < x1[None, :])
+                  & (pty[:, None] >= y0[None, :]) & (pty[:, None] < y1[None, :]))
+        alpha = _pixel_alphas(px, py, m, cn, op, vd, config)
+        alpha = torch.where(member, alpha, torch.zeros_like(alpha))
+        T, done, accum = _blend_chunk(T, done, accum, alpha, cl, config.transmittance_eps)
+    out = accum + T[:, None] * background[None, :]
+    return out.reshape(img_height, img_width, C)

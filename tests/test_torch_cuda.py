@@ -893,3 +893,92 @@ def test_colmap_cli_step_cuda_route_matches_torch(dev, tmp_path):
         assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0, k
         rel = (got - want).abs() / want.abs().amax()
         assert int((rel > 1e-4).sum()) <= 1e-5 * rel.numel() and float(rel.max()) <= 1e-3, k
+
+
+def test_dense_oracle_matches_cuda_route(dev):
+    """The port's dense oracle (global depth sort, analytic tile
+    membership) against the "cuda" route's render (B4, B5, B1) on the
+    same projection, by B1's rule."""
+    from mojosplat_tpu_torch.ops.binning import bin_gaussians_to_tiles
+    from mojosplat_tpu_torch.ops.projection import project_gaussians
+    from mojosplat_tpu_torch.ops.rasterization import rasterize_dense_oracle, rasterize_gaussians
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, W = 128, 192
+    p, cam = _camera_scene(dev, 2000, H, W, {}, seed=3)
+    cfg = RenderConfig(raster_impl="cuda", tile_capacity=512, isect_padding_multiplier=16)
+    proj = project_gaussians(p["means3d"], p["scales"], p["quats"], p["opacities"], cam, cfg)
+    binning = bin_gaussians_to_tiles(proj.means2d, proj.radii, proj.depths, H, W, cfg)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    img, aux = rasterize_gaussians(proj.means2d, proj.conics, p["features"], p["opacities"], bg,
+                                   binning, H, W, cfg)
+    oracle = rasterize_dense_oracle(proj.means2d, proj.conics, p["features"], p["opacities"],
+                                    bg, proj.depths, proj.radii, H, W, cfg)
+    assert int(aux.tile_overflow) == 0 and int(binning.aux.capacity_overflow) == 0
+    _route_rules("dense oracle", img, oracle, [], [])
+
+
+def test_tsdf_fuse_cuda_matches_cpu(dev):
+    """tests/test_mesh.py's sphere: its depth and alpha maps rendered on the
+    "cuda" route (B7), fused on the card and on the CPU: the TSDF within
+    1e-5 where both weights agree, the weights differing on under 1e-4 of
+    the voxels (threshold flips)."""
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.examples.extract_mesh import depth_view
+    from mojosplat_tpu_torch.utils.mesh import tsdf_fuse
+    from torch_scene_tools_cases import sphere_cameras, surfel_sphere
+
+    p = params_from_numpy(surfel_sphere(), dev)
+    cfg = RenderConfig(tile_capacity=256, chunk_size=64, raster_impl="cuda")
+    cams = sphere_cameras(dev)
+    depths, alphas = zip(*(depth_view(p, cam, None, cfg) for cam in cams))
+    bounds, res = ((-1.1,) * 3, (1.1,) * 3), 96
+    t_c, w_c, _, _ = tsdf_fuse(depths, alphas, cams, bounds, res)
+    t_h, w_h, _, _ = tsdf_fuse([d.cpu() for d in depths], [a.cpu() for a in alphas],
+                               [camera_to(c, "cpu") for c in cams], bounds, res)
+    assert (w_h > 0).mean() > 0.2
+    assert int((w_c != w_h).sum()) < 1e-4 * w_h.size
+    same = w_c == w_h
+    np.testing.assert_allclose(t_c[same], t_h[same], rtol=0, atol=1e-5)
+
+
+def test_sphere_reconstruction_cuda_route(dev):
+    """tests/test_mesh.py's end-to-end reconstruction on the "cuda" route
+    and the card, under that test's radius bounds."""
+    from torch_scene_tools_cases import (
+        SPHERE_MEDIAN_VOXELS, SPHERE_P90_VOXELS, reconstruct_sphere)
+
+    out = reconstruct_sphere("cuda", dev)
+    assert out["observed"] > 0.2 and len(out["faces"]) > 1000
+    assert out["median_voxels"] < SPHERE_MEDIAN_VOXELS and out["p90_voxels"] < SPHERE_P90_VOXELS
+
+
+def test_viewer_handler_cuda(dev, tmp_path):
+    """The viewer's /render body on the card: the decoded PNG equals
+    ``to_uint8`` of a direct "cuda"-route render of the view, and a request
+    launches B4, B5 and B1 once each."""
+    import io
+
+    from PIL import Image
+
+    from mojosplat_tpu_torch.examples import viewer
+    from mojosplat_tpu_torch.ops import expand_cuda, raster_cuda, slice_cuda
+    from mojosplat_tpu_torch.utils.image import to_uint8
+    from mojosplat_tpu_torch.utils.ply import save_gaussian_ply
+
+    rng = np.random.default_rng(2)
+    n = 3000
+    save_gaussian_ply(str(tmp_path / "s.ply"), dict(
+        means3d=rng.normal(0, 1.0, (n, 3)), scales=rng.normal(-3.0, 0.3, (n, 3)),
+        quats=rng.normal(size=(n, 4)), opacities_raw=rng.normal(1.0, 1.0, n),
+        features=rng.uniform(-0.5, 0.5, (n, 4, 3))))
+    v = viewer.build_viewer(["--ply", str(tmp_path / "s.ply"), "--height", "120",
+                             "--width", "200"])
+    counters = (expand_cuda.segment_expand_offsets, slice_cuda.segment_slice_gather,
+                raster_cuda.raster_tiles)
+    for fn in counters:
+        fn.launches = 0
+    body = v.png(0.7, 0.1, v.radius0)
+    assert [fn.launches for fn in counters] == [1, 1, 1]
+    want = to_uint8(v.render(0.7, 0.1, v.radius0).cpu().numpy())
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(body)).convert("RGB")), want)
