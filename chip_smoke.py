@@ -198,6 +198,38 @@ exits nonzero without printing the final result line:
      against cuda_ms_queued, and the dense oracle against the "cuda" route
      by the B1 rule.
 
+ 17. The sharded paths of parallel/ (the phase 17 constants below), at
+     1920x1152 on the trained scene (preset 6 with tight_cull) and its
+     disks, SGD at lr 1 with each step's gradient (its .grad) held to the
+     single device's by the B2 rule and the loss within 1e-5: (a) in this
+     process, 2 and 4 slabs (viewport_rows) against the full render, at
+     preset 6 printed (a slab clamps a gaussian's tile rectangle before
+     the span cut, ROADMAP Queue C) and each slab held to the "torch"
+     route's slab (the disks with the maps by the route rule, their
+     distortion relative to the depth squared it cancels); at PAR_EXACT
+     (no rectangle cut) held to the full render by the B1 rule and the
+     summed slab losses' gradients by the B2 rule, with each slab's
+     launches; (b) a world of 1 on NCCL: train_step_sharded (with and
+     without ZeRO-1), train_step_sharded_surfel, render_gaussians_sharded
+     and train_step_gauss_sharded against train_step / train_step_surfel /
+     render_gaussians, first-call and steady step times, and the
+     benchmark_scaling CLI at its defaults in a world of one; after a
+     ZeRO-1 step, here and in (c), the replicated parameters must be
+     bitwise p - grad, the replicated update from the same all-reduced
+     gradient (the replicas' .grad, itself held to the single device's);
+     (c) two spawned ranks in a
+     gloo world on the one card (gloo takes the card's tensors, so nothing
+     is staged through the host): render_batch_sharded (both families),
+     train_step_sharded with ZeRO-1 and train_step_sharded_surfel on a
+     (1, 2) mesh at PAR_EXACT, its halo crossing row 576, and
+     render_gaussians_sharded with its RouteAux and PAR_GAUSS_STEPS steps
+     of train_step_gauss_sharded on make_gauss_mesh(2) at preset 6, 524,288
+     gaussians a rank; each rank writes its blocks, gradients, counts,
+     times and peak memory under build/parallel, and this process holds
+     them to (b)'s single-device results (the surfel step's gradient to
+     twice the single device's: the reference's n_dev x, ROADMAP Queue C).
+     A rank that fails or outlives PAR_TIMEOUT_S fails the phase.
+
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
 kernels), so a few values near a threshold may flip. Each output row is
@@ -212,7 +244,8 @@ one training step of its path (B6: in the render without maps; B9: in the
 probe's run, one entry per variant; launches_cameras: in one pose step of
 phase 14 for B1-B5, in the ortho disks' backward for B6 and B8;
 launches_capture_3dgs / _2dgs: in each step of phase 15's runs;
-launches_scene_tools: per unit of each phase 16 tool that runs it), its max
+launches_scene_tools: per unit of each phase 16 tool that runs it;
+launches_sharded: per rank and step of each phase 17 (c) path), its max
 abs error against the plain version, its times and its bound (for B6-B8,
 as for B1 and B2, counting the per-pair work only on the walked pairs
 whose (pixel row, slot) pair the row test keeps, plus the row tests; B9
@@ -404,6 +437,20 @@ VIEWER_POSES = ((0.0, 0.25), (0.8, 0.1), (1.6, -0.2), (3.0, 0.4), (4.5, 0.0))
 TSDF_ATOL, TSDF_MAX_FLIP_SHARE = 1e-5, 1e-4
 AMORTIZED_MAX_REL = 0.1
 ORACLE_HW, ORACLE_N = 256, 2000
+
+# Phase 17, the sharded paths of parallel/, on the trained scene and its
+# disks at full width: 1080 rows rounded up to whole slabs of 4 x 32 rows
+# (as examples/benchmark_scaling.py:76-77 rounds: 36 tile rows, so 2 and 4
+# slabs divide). (c) runs PAR_GAUSS_STEPS steps of the gaussian-sharded
+# trainer; its ranks write under PAR_DIR and must end within PAR_TIMEOUT_S.
+PAR_H, PAR_W = 1152, 1920
+# Preset 6's budgets with no tile rectangle cut: at 1920x1152 the trained
+# scene's rectangles span at most 22 tile rows (their AABBs, 4,344,290
+# slots, within the 8x capacity); tight_cull takes spans up to 8 only.
+PAR_EXACT = dict(SCENE_BUDGETS, tight_cull=False, max_tile_span=36)
+PAR_GAUSS_STEPS = 3
+PAR_DIR = ROOT / "build" / "parallel"
+PAR_TIMEOUT_S = 420
 
 
 def phase(name: str, msg: str) -> None:
@@ -2340,6 +2387,557 @@ def scene_tools_phase(raw: dict, sh_degree: int, counters: dict, smi: str) -> di
     return per_unit
 
 
+
+# ---- Phase 17: the sharded paths of parallel/
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper and the attribute counting its launches (B6
+    and B7 share one wrapper)."""
+    from mojosplat_tpu_torch.ops.expand_cuda import segment_expand_offsets
+    from mojosplat_tpu_torch.ops.raster_cuda import raster_tiles, raster_tiles_bwd
+    from mojosplat_tpu_torch.ops.raster_probe import raster_variant
+    from mojosplat_tpu_torch.ops.segsum_cuda import segment_sum_cols
+    from mojosplat_tpu_torch.ops.slice_cuda import segment_slice_gather
+    from mojosplat_tpu_torch.ops.surfel_cuda import raster_surfel_tiles_bwd, raster_surfel_tiles_fwd
+
+    return {"B1": (raster_tiles, "launches"), "B2": (raster_tiles_bwd, "launches"),
+            "B3": (segment_sum_cols, "launches"), "B4": (segment_expand_offsets, "launches"),
+            "B5": (segment_slice_gather, "launches"),
+            "B6": (raster_surfel_tiles_fwd, "launches"),
+            "B7": (raster_surfel_tiles_fwd, "launches_maps"),
+            "B8": (raster_surfel_tiles_bwd, "launches"), "B9": (raster_variant, "launches")}
+
+
+def counted(fn, expect: tuple, what: str):
+    """Run ``fn()`` with every launch count set to 0 just before and read
+    just after (synchronised); raise unless each kernel in ``expect`` was
+    launched and no other was. Returns (result, counts, ms on the host
+    clock)."""
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for wrapper, attr in wrappers.values():
+        setattr(wrapper, attr, 0)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: getattr(wrapper, attr) for k, (wrapper, attr) in wrappers.items()}
+    if min(counts[k] for k in expect) < 1 or any(v for k, v in counts.items() if k not in expect):
+        raise AssertionError(f"{what}: launches {counts}; expected {expect} and no other")
+    return out, counts, ms
+
+
+def host_ms(fn) -> float:
+    """Milliseconds of ``fn()`` on the host clock between two synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def sgd_step(leaves: dict, step) -> tuple:
+    """(the loss, each leaf's gradient) of one ``step(leaves, optimizer)``
+    with SGD at lr 1, which moves each leaf by its gradient. The gradient
+    is read from the leaf (``.grad``, what the update applied): the
+    change itself, a difference of f32 parameters of order 1, would carry
+    their rounding (6e-8) into gradients of 1e-6."""
+    loss = step(leaves, torch.optim.SGD(list(leaves.values()), lr=1.0))
+    return float(loss), {k: v.grad.detach().clone() for k, v in leaves.items()}
+
+
+def par_scene(raw: dict, dev) -> dict:
+    """Phase 17's inputs, the same in every process: the scene's and the
+    disks' perturbed raw leaves (phase 7's noise), their unperturbed
+    "cuda"-route renders on a black background as targets, and the
+    camera."""
+    from mojosplat_tpu_torch import RenderConfig, render_gaussians, render_surfels
+    from mojosplat_tpu_torch.convert import params_from_numpy
+    from mojosplat_tpu_torch.train import activate
+    from mojosplat_tpu_torch.utils.scenes import scene_camera
+
+    sh_degree = int(round(raw["features"].shape[1] ** 0.5)) - 1
+    cam = scene_camera(PAR_H, PAR_W, device=dev)
+    cfg = RenderConfig(raster_impl="cuda", **SCENE_BUDGETS)
+    disks = dict(raw, scales=np.ascontiguousarray(raw["scales"][:, :2]))
+    with torch.no_grad():
+        p = activate(params_from_numpy(raw, dev))
+        target = render_gaussians(*(p[k] for k in KEYS), cam, sh_degree=sh_degree, config=cfg)
+        p = activate(params_from_numpy(disks, dev))
+        target_d = render_surfels(*(p[k] for k in KEYS), cam, sh_degree=sh_degree, config=cfg)
+    return dict(sh_degree=sh_degree, cam=cam, cfg=cfg, target=target, target_d=target_d,
+                leaves=perturbed_leaves(raw, dev), disks=perturbed_leaves(disks, dev))
+
+
+def _rank_main(rank: int, port: int, out: str) -> None:
+    """One rank of phase 17 (c): a gloo world of 2 on the one card. Writes
+    its blocks, shards, losses, counts, times and peak memory to
+    ``out/rank<r>.pt``."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(MOJOSPLAT_COORDINATOR=f"127.0.0.1:{port}", MOJOSPLAT_NUM_PROCESSES="2",
+                      MOJOSPLAT_PROCESS_ID=str(rank))
+    import torch.distributed as dist
+
+    from mojosplat_tpu_torch import RenderConfig
+    from mojosplat_tpu_torch.parallel import (
+        init_multihost, make_gauss_mesh, make_mesh, render_batch_sharded,
+        render_gaussians_sharded, train_step_gauss_sharded)
+    from mojosplat_tpu_torch.parallel.sharding import batch_block
+    from mojosplat_tpu_torch.train import (
+        activate, train_step_sharded, train_step_sharded_surfel, zero1_rows)
+    from mojosplat_tpu_torch.utils.compress import load_compressed_scene
+    from mojosplat_tpu_torch.utils.scenes import TRAINED_SCENE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_multihost(backend="gloo")
+    raw = load_compressed_scene(str(ROOT / TRAINED_SCENE))
+    s = par_scene(raw, dev)
+    sh, cam, cfg = s["sh_degree"], s["cam"], s["cfg"]
+    cfg_exact = RenderConfig(raster_impl="cuda", **PAR_EXACT)  # the slab paths'
+    res = dict(rank=rank, counts={}, ms={})
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    mesh = make_mesh(1, 2)
+    with torch.no_grad():
+        for prim, key in (("3dgs", "leaves"), ("2dgs", "disks")):
+            p = activate(s[key])
+            expect = ("B4", "B5", "B1") if prim == "3dgs" else ("B4", "B5", "B6")
+            block, res["counts"][f"render_{prim}"], res["ms"][f"render_{prim}"] = counted(
+                lambda: render_batch_sharded(p, [cam], mesh, sh_degree=sh, config=cfg_exact,
+                                             primitive=prim), expect, f"render {prim}")
+            res[f"block_{prim}"] = block.cpu()
+
+    leaves = s["leaves"]
+    before = {k: v.detach().clone() for k, v in leaves.items()}
+    shards = zero1_rows(leaves, mesh)
+    loss, res["counts"]["dp_sp_zero1"], res["ms"]["dp_sp_zero1"] = counted(
+        lambda: train_step_sharded(leaves, torch.optim.SGD(list(shards.values()), lr=1.0), [cam],
+                                   batch_block(s["target"][None], mesh), mesh, sh_degree=sh,
+                                   config=cfg_exact, zero1=shards),
+        ("B4", "B5", "B1", "B2", "B3"), "train_step_sharded")
+    res["dp_sp_loss"] = float(loss)
+    res["dp_sp_update_off"] = zero1_update_off(before, leaves)
+    del before
+    # The replicas after the all-gather: the same on both ranks.
+    res["dp_sp_checksum"] = [float(v.detach().double().sum()) for v in leaves.values()]
+    if rank == 0:
+        res["dp_sp_grad"] = {k: v.grad.cpu() for k, v in leaves.items()}
+    opt = torch.optim.SGD(list(shards.values()), lr=1e-3)
+    res["ms"]["dp_sp_zero1_more"] = [host_ms(lambda: train_step_sharded(
+        leaves, opt, [cam], batch_block(s["target"][None], mesh), mesh, sh_degree=sh,
+        config=cfg_exact, zero1=shards)) for _ in range(2)]
+    del shards, opt
+
+    disks = s["disks"]
+    loss, res["counts"]["surfel"], res["ms"]["surfel"] = counted(
+        lambda: train_step_sharded_surfel(disks, torch.optim.SGD(list(disks.values()), lr=1.0),
+                                          [cam], batch_block(s["target_d"][None], mesh), mesh,
+                                          sh_degree=sh, config=cfg_exact, **SURFEL_WEIGHTS),
+        ("B3", "B4", "B5", "B7", "B8"), "train_step_sharded_surfel")
+    res["surfel_loss"] = float(loss)
+    if rank == 0:
+        res["surfel_grad"] = {k: v.grad.cpu() for k, v in disks.items()}
+    opt = torch.optim.SGD(list(disks.values()), lr=1e-3)
+    res["ms"]["surfel_more"] = [host_ms(lambda: train_step_sharded_surfel(
+        disks, opt, [cam], batch_block(s["target_d"][None], mesh), mesh, sh_degree=sh,
+        config=cfg_exact, **SURFEL_WEIGHTS)) for _ in range(2)]
+
+    gmesh = make_gauss_mesh(2)
+    n = next(iter(s["leaves"].values())).shape[0] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    fresh = perturbed_leaves(raw, dev)
+    shard = {k: v.detach()[rows].clone().requires_grad_(True) for k, v in fresh.items()}
+    del fresh, s["leaves"], s["disks"], leaves, disks
+    with torch.no_grad():
+        (slab, aux), res["counts"]["gauss_render"], res["ms"]["gauss_render"] = counted(
+            lambda: render_gaussians_sharded(activate(shard), cam, gmesh, sh_degree=sh,
+                                             config=cfg, return_aux=True),
+            ("B4", "B5", "B1"), "render_gaussians_sharded")
+    res["gauss_slab"], res["gauss_aux"] = slab.cpu(), [int(x) for x in aux]
+    res["gauss_rows"] = n
+    slab_target = s["target"][rank * PAR_H // 2:(rank + 1) * PAR_H // 2]
+    opt = torch.optim.SGD(list(shard.values()), lr=1.0)
+    res["gauss_losses"], res["counts"]["gauss_step"], res["ms"]["gauss_step"] = [], [], []
+    for i in range(PAR_GAUSS_STEPS):
+        loss, counts, ms = counted(
+            lambda: train_step_gauss_sharded(shard, opt, cam, slab_target, gmesh, sh_degree=sh,
+                                             config=cfg),
+            ("B4", "B5", "B1", "B2", "B3"), "train_step_gauss_sharded")
+        if i == 0:
+            res["gauss_grad"] = {k: v.grad.cpu() for k, v in shard.items()}
+        res["gauss_losses"].append(float(loss))
+        res["counts"]["gauss_step"].append(counts)
+        res["ms"]["gauss_step"].append(ms)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(n: int, out: Path, timeout_s: float) -> list:
+    """Start n ranks of ``_rank_main`` (spawned), wait; a rank that fails or
+    outlives ``timeout_s`` fails the phase, and every rank is stopped."""
+    import torch.multiprocessing as mp
+
+    out.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, port, str(out))) for r in range(n)]
+    for p in procs:
+        p.start()
+    t0 = time.perf_counter()
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if failed or time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"parallel: a rank failed or timed out (exit codes "
+                                     f"{[p.exitcode for p in procs]})")
+            time.sleep(0.5)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"parallel: rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+def grads_agree(name: str, got: dict, want: dict, scale: float = 1.0) -> None:
+    for k in want:
+        grad_agreement(f"{name} d {k}", got[k].to(want[k].device)[None],
+                       (scale * want[k])[None])
+
+
+def zero1_update_off(before: dict, params: dict) -> int:
+    """The number of values where a ZeRO-1 step at SGD lr 1 did not leave
+    the replicated parameters bitwise at ``before - grad``, the replicated
+    step's update from the same all-reduced gradient (the replicas'
+    ``.grad``): the row slice and the all-gather's order put every updated
+    row back in place."""
+    return sum(int((params[k].detach() != before[k] - params[k].grad).sum()) for k in before)
+
+
+def parallel_phase(raw: dict, smi: str) -> dict:
+    """Phase 17: the sharded paths at 1920 x 1152 on the trained scene
+    (preset 6 with tight_cull) and its disks. (a) slabs in this process;
+    (b) a world of 1 on NCCL; (c) two spawned ranks in a gloo world on the
+    one card. Returns each kernel's launches per rank and step of each
+    sharded path."""
+    import os
+
+    import torch.distributed as dist
+
+    from mojosplat_tpu_torch import RenderConfig, render_gaussians, render_surfels
+    from mojosplat_tpu_torch.parallel import (
+        init_multihost, make_gauss_mesh, make_mesh, render_gaussians_sharded,
+        train_step_gauss_sharded)
+    from mojosplat_tpu_torch.train import (
+        activate, train_step, train_step_sharded, train_step_sharded_surfel,
+        train_step_surfel, zero1_rows)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    s = par_scene(raw, dev)
+    sh, cam, cfg = s["sh_degree"], s["cam"], s["cfg"]
+    # tile_batch bounds the plain blender's memory; it changes no result.
+    cfg_torch = RenderConfig(raster_impl="torch", tile_batch=256, **SCENE_BUDGETS)
+    leaves, disks = s["leaves"], s["disks"]
+    phase("parallel", f"{smi}; {PAR_W}x{PAR_H} (1080 rounded up to 4 slabs of whole 32-px "
+          f"tile rows), {leaves['means3d'].shape[0]} gaussians, SH {sh}, preset 6 with "
+          f"tight_cull (PAR_EXACT where slabs are held to the full render); SGD at lr 1, "
+          f"each step's gradient held to the single device's")
+
+    # ---- (a) Slabs in one process, the "cuda" route
+    def l2(img, tgt):
+        return torch.sum((img - tgt) ** 2) / s["target"].numel()
+
+    def render_slab(family, p, rows=None, config=cfg, **kw):
+        if family == "3dgs":
+            return render_gaussians(*(p[k] for k in KEYS), cam, sh_degree=sh, config=config,
+                                    viewport_rows=rows, **kw)
+        return render_surfels(*(p[k] for k in KEYS), cam, sh_degree=sh, config=config,
+                              return_depth=True, return_normals=True, return_distortion=True,
+                              viewport_rows=rows, **kw)
+
+    def slab_run(family, n_slab, config):
+        """The family's images and the gradient of the summed losses over
+        n_slab slabs (the full render for 1), with each slab's launches."""
+        src = leaves if family == "3dgs" else disks
+        tgt_full = s["target"] if family == "3dgs" else s["target_d"]
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in src.items()}
+        h = PAR_H // n_slab
+        imgs, per_slab = [], []
+        for i in range(n_slab):
+            rows, tgt = (i * h, h), tgt_full[i * h:(i + 1) * h]
+
+            def one():
+                out = render_slab(family, activate(p), rows, config)
+                img = out if family == "3dgs" else out[0]
+                loss = l2(img, tgt)
+                if family == "2dgs":
+                    loss = loss + 1e-3 * torch.sum(out[1] ** 2) / tgt_full[..., 0].numel()
+                loss.backward()
+                return img.detach()
+
+            expect = (("B4", "B5", "B1", "B2", "B3") if family == "3dgs"
+                      else ("B4", "B5", "B7", "B8", "B3"))
+            img, counts, _ = counted(one, expect, f"{family} slab {i}")
+            imgs.append(img)
+            per_slab.append(counts)
+        return torch.cat(imgs), {k: v.grad for k, v in p.items()}, per_slab
+
+    # At preset 6 a gaussian whose tile rectangle spans more than
+    # max_tile_span rows is cut to a window centred on it, and a slab clamps
+    # the rectangle at its own edges first, so slabs keep other windows of
+    # such gaussians than the full render (the reference's contract,
+    # ROADMAP Queue C). Printed here; each slab is held to the "torch"
+    # route's slab, the same contract, by B1's rule (the route rule for
+    # the disks with the maps).
+    with torch.no_grad():
+        for family in ("3dgs", "2dgs"):
+            src = activate(leaves if family == "3dgs" else disks)
+            full = render_slab(family, src, return_aux=True)
+            img_full = full[0]
+            for n_slab in (2, 4):
+                h = PAR_H // n_slab
+                outs = [render_slab(family, src, (i * h, h), return_aux=True)
+                        for i in range(n_slab)]
+                img = torch.cat([o[0] for o in outs])
+                off = float(((img - img_full).abs() > BLEND_ATOL).float().mean())
+                counters = {k: sum(drop_counters(o[-1])[k] for o in outs)
+                            for k in drop_counters(full[-1])}
+                phase("parallel", f"{family} preset 6, {n_slab} slabs against the full render: "
+                      f"{off:.3e} of the values differ by more than {BLEND_ATOL}; counters "
+                      f"summed over the slabs {json.dumps(counters)}, full render "
+                      f"{json.dumps(drop_counters(full[-1]))}")
+            for i in range(2):
+                h = PAR_H // 2
+                got = render_slab(family, src, (i * h, h))
+                want = render_slab(family, src, (i * h, h), cfg_torch)
+                if family == "3dgs":
+                    blend_agreement(f"parallel 3dgs preset 6 slab {i} of 2 vs torch route", got,
+                                    want)
+                    continue
+                # The distortion 2 (alpha m2 - m1^2) cancels terms of the
+                # order of the depth squared, and a slab's shifted record
+                # rows carry one more rounding (ROADMAP Queue C): it is held
+                # relative to the terms it cancels.
+                scales = [row_scale(b, (0, 1)) for b in want[:3]]
+                scales.append(scales[1] ** 2)
+                for name, a, b, sc in zip(("image", "depth", "normals", "distortion"), got,
+                                          want, scales):
+                    blend_agreement(f"parallel 2dgs preset 6 slab {i} of 2 {name} vs torch "
+                                    f"route", a, b, sc, ROUTE_MAX_SHARE, ROUTE_MAX_ERR)
+            del full, outs, img, got, want
+    # With no rectangle cut (PAR_EXACT), the slabs are the full render's rows
+    # but for the y shift's rounding: B1's rule, and B2's on the gradients.
+    cfg_exact = RenderConfig(raster_impl="cuda", **PAR_EXACT)
+    for family in ("3dgs", "2dgs"):
+        img_full, g_full, _ = slab_run(family, 1, cfg_exact)
+        for n_slab in (2, 4):
+            img, g, per_slab = slab_run(family, n_slab, cfg_exact)
+            blend_agreement(f"parallel {family} {n_slab} slabs vs the full render", img,
+                            img_full, row_scale(img_full, (0, 1)))
+            grads_agree(f"parallel {family} {n_slab} slabs' loss vs the full render's", g,
+                        g_full)
+            phase("parallel", f"{family}, {n_slab} slabs: launches of each slab (forward and "
+                  f"backward) {json.dumps(per_slab)}")
+        del img_full, g_full, img, g
+
+    # ---- (b) A world of 1 on NCCL, in this process
+    os.environ.update(MOJOSPLAT_COORDINATOR=f"127.0.0.1:{free_port()}",
+                      MOJOSPLAT_NUM_PROCESSES="1", MOJOSPLAT_PROCESS_ID="0")
+    if not init_multihost():
+        raise AssertionError("parallel: init_multihost did not start the NCCL world")
+    mesh, gmesh = make_mesh(1, 1), make_gauss_mesh(1)
+    ref = {}
+    target = s["target"]
+
+    def fresh(src):
+        return {k: v.detach().clone().requires_grad_(True) for k, v in src.items()}
+
+    # Single-device references: train_step (the L2 mean) and train_step_surfel.
+    (ref["loss"], ref["grad"]), _, ms_single = counted(
+        lambda: sgd_step(fresh(leaves), lambda p, o: train_step(
+            p, o, [cam], target[None], sh_degree=sh, config=cfg)),
+        ("B4", "B5", "B1", "B2", "B3"), "train_step")
+    (ref["surfel_loss"], ref["surfel_grad"]), _, ms_single_s = counted(
+        lambda: sgd_step(fresh(disks), lambda p, o: train_step_surfel(
+            p, o, [cam], s["target_d"][None], sh_degree=sh, config=cfg, **SURFEL_WEIGHTS)),
+        ("B3", "B4", "B5", "B7", "B8"), "train_step_surfel")
+    times = dict(train_step=ms_single, train_step_surfel=ms_single_s)
+    runs = {
+        "train_step_sharded": lambda p, o: train_step_sharded(
+            p, o, [cam], target[None], mesh, sh_degree=sh, config=cfg),
+        "train_step_gauss_sharded": lambda p, o: train_step_gauss_sharded(
+            p, o, cam, target, gmesh, sh_degree=sh, config=cfg),
+    }
+    for name, run in runs.items():
+        (loss, grad), counts, times[name] = counted(
+            lambda: sgd_step(fresh(leaves), run), ("B4", "B5", "B1", "B2", "B3"), name)
+        rel = abs(loss - ref["loss"]) / ref["loss"]
+        if rel > 1e-5:
+            raise AssertionError(f"{name}: loss {loss} against {ref['loss']}")
+        grads_agree(f"parallel world 1 {name}", grad, ref["grad"])
+    # ZeRO-1: the replicas' all-reduced gradient held to the single
+    # device's (B2's rule), and the parameters after the step bitwise at
+    # the replicated update from that gradient.
+    p = fresh(leaves)
+    before = {k: v.detach().clone() for k, v in p.items()}
+    shards = zero1_rows(p, mesh)
+    _, _, times["train_step_sharded zero1"] = counted(
+        lambda: train_step_sharded(p, torch.optim.SGD(list(shards.values()), lr=1.0), [cam],
+                                   target[None], mesh, sh_degree=sh, config=cfg, zero1=shards),
+        ("B4", "B5", "B1", "B2", "B3"), "train_step_sharded zero1")
+    grads_agree("parallel world 1 train_step_sharded zero1",
+                {k: v.grad for k, v in p.items()}, ref["grad"])
+    off = zero1_update_off(before, p)
+    phase("parallel", f"world 1 train_step_sharded zero1: {off} parameter values off the "
+          f"replicated update p - grad")
+    if off:
+        raise AssertionError("train_step_sharded zero1: the update is not the replicated one")
+    del p, shards, before
+    (loss, grad), _, times["train_step_sharded_surfel"] = counted(
+        lambda: sgd_step(fresh(disks), lambda p, o: train_step_sharded_surfel(
+            p, o, [cam], s["target_d"][None], mesh, sh_degree=sh, config=cfg,
+            **SURFEL_WEIGHTS)), ("B3", "B4", "B5", "B7", "B8"), "train_step_sharded_surfel")
+    if abs(loss - ref["surfel_loss"]) > 1e-5 * ref["surfel_loss"]:
+        raise AssertionError(f"train_step_sharded_surfel: loss {loss} against "
+                             f"{ref['surfel_loss']}")
+    grads_agree("parallel world 1 train_step_sharded_surfel", grad, ref["surfel_grad"])
+    with torch.no_grad():
+        q = activate(leaves)
+        ref["image"] = render_slab("3dgs", q)
+        (img, aux), _, times["render_gaussians_sharded"] = counted(
+            lambda: render_gaussians_sharded(q, cam, gmesh, sh_degree=sh, config=cfg,
+                                             return_aux=True), ("B4", "B5", "B1"),
+            "render_gaussians_sharded")
+        blend_agreement("parallel world 1 render_gaussians_sharded", img, ref["image"])
+        # (c)'s slab paths run at PAR_EXACT: their single-device renders.
+        ref["image_x"] = render_slab("3dgs", q, config=cfg_exact)
+        ref["image_d_x"] = render_surfels(*(activate(disks)[k] for k in KEYS), cam,
+                                          sh_degree=sh, config=cfg_exact)
+    (ref["loss_x"], ref["grad_x"]), _, _ = counted(
+        lambda: sgd_step(fresh(leaves), lambda p, o: train_step(
+            p, o, [cam], target[None], sh_degree=sh, config=cfg_exact)),
+        ("B4", "B5", "B1", "B2", "B3"), "train_step")
+    (ref["surfel_loss_x"], ref["surfel_grad_x"]), _, _ = counted(
+        lambda: sgd_step(fresh(disks), lambda p, o: train_step_surfel(
+            p, o, [cam], s["target_d"][None], sh_degree=sh, config=cfg_exact,
+            **SURFEL_WEIGHTS)), ("B3", "B4", "B5", "B7", "B8"), "train_step_surfel")
+    phase("parallel", f"world 1 (NCCL): RouteAux {json.dumps(aux._asdict(), default=int)}")
+    phase("parallel", f"world 1 (NCCL), {smi}: ms on the host clock, synchronised, the "
+          f"first call of each: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+
+    def steady(step, src, zero1=False):
+        """Median ms of 3 steps (SGD at lr 1e-3) after one untimed."""
+        p = fresh(src)
+        held = zero1_rows(p, mesh) if zero1 else p
+        opt = torch.optim.SGD(list(held.values()), lr=1e-3)
+        ms = [host_ms(lambda: step(p, opt, held if zero1 else None)) for _ in range(4)]
+        return statistics.median(ms[1:])
+
+    tgt_d = s["target_d"][None]
+    steady_ms = {
+        "train_step": steady(lambda p, o, z: train_step(
+            p, o, [cam], target[None], sh_degree=sh, config=cfg), leaves),
+        "train_step_sharded": steady(lambda p, o, z: train_step_sharded(
+            p, o, [cam], target[None], mesh, sh_degree=sh, config=cfg), leaves),
+        "train_step_sharded zero1": steady(lambda p, o, z: train_step_sharded(
+            p, o, [cam], target[None], mesh, sh_degree=sh, config=cfg, zero1=z), leaves, True),
+        "train_step_gauss_sharded": steady(lambda p, o, z: train_step_gauss_sharded(
+            p, o, cam, target, gmesh, sh_degree=sh, config=cfg), leaves),
+        "train_step_surfel": steady(lambda p, o, z: train_step_surfel(
+            p, o, [cam], tgt_d, sh_degree=sh, config=cfg, **SURFEL_WEIGHTS), disks),
+        "train_step_sharded_surfel": steady(lambda p, o, z: train_step_sharded_surfel(
+            p, o, [cam], tgt_d, mesh, sh_degree=sh, config=cfg, **SURFEL_WEIGHTS), disks),
+    }
+    phase("parallel", f"world 1 (NCCL), {smi}: steady ms (median of 3 steps after one, host "
+          f"clock, synchronised): " + ", ".join(f"{k} {v:.2f}" for k, v in steady_ms.items()))
+    dist.destroy_process_group()
+    for k in ("MOJOSPLAT_COORDINATOR", "MOJOSPLAT_NUM_PROCESSES", "MOJOSPLAT_PROCESS_ID"):
+        del os.environ[k]
+    del img, grad
+    # The scaling sweep's CLI at its defaults: on one card, d = 1 of both
+    # pipelines in a world of one (no rendezvous set: init_multihost's
+    # world_of_one).
+    from mojosplat_tpu_torch.examples import benchmark_scaling
+
+    sweep = benchmark_scaling.main(["--pipeline", "both"])
+    if [r["pipeline"] for r in sweep] != ["dp-sp", "gauss"]:
+        raise AssertionError(f"benchmark_scaling: {sweep}")
+
+    # ---- (c) Two ranks on the one card, a gloo world
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, PAR_DIR, PAR_TIMEOUT_S)
+    phase("parallel", f"2 ranks (gloo, both on cuda:0) in {time.perf_counter() - t0:.1f} s; "
+          f"no host staging: gloo took the card's tensors for all_reduce, all_gather and "
+          f"all_to_all_single (a one-off probe, and every collective here)")
+    for r in ranks:
+        phase("parallel", f"rank {r['rank']}: peak memory {r['peak_bytes']} bytes; launches "
+              + json.dumps({k: v for k, v in r["counts"].items() if k != "gauss_step"})
+              + f"; gauss step {json.dumps(r['counts']['gauss_step'][0])}; ms "
+              + json.dumps({k: (round(v, 1) if isinstance(v, float) else
+                                [round(x, 1) for x in v]) for k, v in r["ms"].items()}))
+    # The slab paths at PAR_EXACT (see (a)), the gaussian-sharded one at
+    # preset 6: it bins each shard against the whole tile grid.
+    blend_agreement("parallel 2 ranks render_batch_sharded 3dgs",
+                    torch.cat([r["block_3dgs"][0] for r in ranks]).to(dev), ref["image_x"])
+    blend_agreement("parallel 2 ranks render_batch_sharded 2dgs",
+                    torch.cat([r["block_2dgs"][0] for r in ranks]).to(dev), ref["image_d_x"])
+    if ranks[0]["dp_sp_checksum"] != ranks[1]["dp_sp_checksum"]:
+        raise AssertionError("parallel: the ranks' ZeRO-1 replicas differ")
+    # Each rank's parameters after the ZeRO-1 step, bitwise at the replicated
+    # update from its all-reduced gradient; rank 0's gradient is held to the
+    # single device's below.
+    off = [r["dp_sp_update_off"] for r in ranks]
+    phase("parallel", f"2 ranks train_step_sharded zero1: {off} parameter values off the "
+          f"replicated update p - grad (rank 0, rank 1)")
+    if any(off):
+        raise AssertionError("train_step_sharded zero1: the update is not the replicated one")
+    for name, key, scale in (("train_step_sharded zero1", "dp_sp", 1.0),
+                             ("train_step_sharded_surfel (the reference's n_dev x)", "surfel",
+                              2.0)):
+        want = ref["loss_x" if key == "dp_sp" else "surfel_loss_x"]
+        for r in ranks:
+            if abs(r[f"{key}_loss"] - want) > 1e-5 * want:
+                raise AssertionError(f"{name}: rank {r['rank']} loss {r[key + '_loss']} "
+                                     f"against {want}")
+        grads_agree(f"parallel 2 ranks {name}", ranks[0][f"{key}_grad"],
+                    ref["grad_x" if key == "dp_sp" else "surfel_grad_x"], scale)
+    blend_agreement("parallel 2 ranks render_gaussians_sharded",
+                    torch.cat([r["gauss_slab"] for r in ranks]).to(dev), ref["image"])
+    grad = {k: torch.cat([r["gauss_grad"][k] for r in ranks]) for k in ref["grad"]}
+    grads_agree("parallel 2 ranks train_step_gauss_sharded step 1", grad, ref["grad"])
+    losses = ranks[0]["gauss_losses"]
+    if abs(losses[0] - ref["loss"]) > 1e-5 * ref["loss"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_step_gauss_sharded: losses {losses} against {ref['loss']}")
+    aux = dict(zip(("num_isects", "capacity_overflow", "span_truncated", "route_overflow",
+                    "tile_overflow"), ranks[0]["gauss_aux"]))
+    phase("parallel", f"2 ranks: {ranks[0]['gauss_rows']} gaussians a rank; RouteAux "
+          f"{json.dumps(aux)}; gauss losses {', '.join(f'{x:.6e}' for x in losses)}")
+    phase("parallel", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    r0 = ranks[0]["counts"]
+    return {"dp_sp": r0["dp_sp_zero1"], "surfel": r0["surfel"],
+            "gauss": r0["gauss_step"][0], "render_3dgs": r0["render_3dgs"],
+            "render_2dgs": r0["render_2dgs"]}
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -2814,6 +3412,9 @@ def main() -> int:
     launches_tools = scene_tools_phase(raw, sh_degree, dict(zip(
         ("B4", "B5", "B1", "B2", "B3", "B9"), counters)), smi)
 
+    # ---- 17. The sharded paths of parallel/
+    launches_sharded = parallel_phase(raw, smi)
+
     for k in kernels:
         kid = k["name"][:2]
         for family, launched in launches_capture.items():
@@ -2829,6 +3430,8 @@ def main() -> int:
             k["launches_render"] = launches_render[["B4", "B5", "B1"].index(kid)]
         if kid in launches_densify:
             k.setdefault("launches_densify", launches_densify[kid])
+        k["launches_sharded"] = {path: counts[kid]
+                                 for path, counts in launches_sharded.items() if counts[kid]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

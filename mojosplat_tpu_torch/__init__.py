@@ -24,7 +24,12 @@ CLIs; the scene tools: TSDF fusion and marching tetrahedra
 (``ops.rasterization.rasterize_dense_oracle``) and the demo CLIs
 (``examples.render_sample``, ``orbit_demo``, ``viewer``,
 ``compress_scene``, ``extract_mesh``, ``train_demo``,
-``train_surfel_demo``, ``train_blender``). Kernels: B1/B2
+``train_surfel_demo``, ``train_blender``); multi-card training over
+``torch.distributed`` (``parallel``: the tile-row slab ``viewport_rows``,
+camera-DP x tile-SP with ZeRO-1 and the surfel halo exchange,
+``train.train_step_sharded`` / ``train_step_sharded_surfel``, the
+all-to-all gaussian-sharded pipeline, ``init_multihost``, and
+``examples.benchmark_scaling``). Kernels: B1/B2
 (3DGS tile blend and its backward), B3 (segment sum), B4 (slot
 expansion), B5 (per-tile slot slice), B6/B7 (surfel tile blend, without
 and with the maps), B8 (their backward) and B9 (the blend-variant probe,

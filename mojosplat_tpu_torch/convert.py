@@ -27,6 +27,22 @@ def params_from_numpy(
     }
 
 
+def shard_from_numpy(
+    params: Mapping[str, np.ndarray], rank: int, n: int, device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s rows ``[rank * N / n, (rank + 1) * N / n)`` of every
+    leaf, as tensors on ``device`` (the shards of ``parallel``'s ZeRO-1 and
+    gaussian-sharded steps); raises unless n divides N."""
+    rows = {}
+    for k, v in params.items():
+        N = np.shape(v)[0]
+        if N % n:
+            raise ValueError(f"{k}: N={N} rows do not split over {n} ranks")
+        m = N // n
+        rows[k] = np.asarray(v)[rank * m:(rank + 1) * m]
+    return params_from_numpy(rows, device)
+
+
 def set_grads_from_numpy(
     params: Mapping[str, torch.Tensor], grads: Mapping[str, np.ndarray]
 ) -> None:

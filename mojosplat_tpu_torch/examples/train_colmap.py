@@ -25,12 +25,14 @@ draw on ``--resume`` as the reference does.
 from __future__ import annotations
 
 import argparse
+import builtins
 import dataclasses
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mojosplat_tpu_torch import (
     RenderConfig,
@@ -44,6 +46,7 @@ from mojosplat_tpu_torch import (
 from mojosplat_tpu_torch import densify
 from mojosplat_tpu_torch import train as mtrain
 from mojosplat_tpu_torch.convert import params_from_numpy
+from mojosplat_tpu_torch.parallel import init_multihost, is_primary
 from mojosplat_tpu_torch.surfel import normal_consistency_loss
 from mojosplat_tpu_torch.utils import colmap as cm
 from mojosplat_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -125,7 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="resume from <out-dir>/ckpt if present")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-process training (not ported yet)")
+                    help="start torch.distributed first (launch this CLI once per rank, "
+                    "under torchrun or with MOJOSPLAT_COORDINATOR/_NUM_PROCESSES/"
+                    "_PROCESS_ID); each rank trains its own replica on its own device "
+                    "and only rank 0 prints and writes files")
     return ap
 
 
@@ -270,20 +276,36 @@ def training_state(step: int, params: dict, optimizer, view_params: dict, view_o
     return state
 
 
+def _quiet(*args, **kwargs) -> None:
+    """The print of a rank other than the primary."""
+
+
 def main(argv=None, on_step=None) -> dict:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None). ``on_step(step,
     loss)`` is called after every step. Returns the run's losses (floats),
     the density events' metrics, and the final ``training_state``."""
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet: it comes with the parallel/ package "
-            "(ROADMAP.md, Queue A item 7)")
+    # First: NCCL on this rank's card, or gloo when the CPU is asked for.
+    multi = init_multihost(require=args.multihost,
+                           backend="gloo" if args.device == "cpu" else None)
+    try:
+        return _train(args, on_step)
+    finally:
+        if multi:
+            dist.destroy_process_group()
+
+
+def _train(args, on_step) -> dict:
+    # Every rank trains; only the primary prints and writes into out_dir
+    # (the others would race it on the checkpoint, the PLYs and the PNGs).
+    primary = is_primary()
+    print = builtins.print if primary else _quiet  # noqa: A001
     dev = resolve_device(args.device, args.impl)
     # Full f32 for the SSIM blurs and every matmul (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    os.makedirs(args.out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.out_dir, exist_ok=True)
 
     sparse = args.sparse or os.path.join(args.data, "sparse", "0")
     print(f"Loading COLMAP model from {sparse}")
@@ -442,17 +464,24 @@ def main(argv=None, on_step=None) -> dict:
             print(f"step {step + 1:5d}  loss {lv:.5f}  "
                   f"{(step + 1 - start_step) / (time.perf_counter() - t0):.2f} steps/s",
                   flush=True)
-        if args.save_every and (step + 1) % args.save_every == 0:
+        if primary and args.save_every and (step + 1) % args.save_every == 0:
             ply = os.path.join(args.out_dir, f"scene_{step + 1:06d}.ply")
             save_gaussian_ply(ply, params)
             print(f"  saved {ply}")
-        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+        if primary and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             save_checkpoint(ckpt_path, training_state(step + 1, params, optimizer, view_params,
                                                       view_opt, dstate, generator))
             print(f"  checkpointed step {step + 1} -> {ckpt_path}")
         if on_step is not None:
             on_step(step, loss)
 
+    result = dict(
+        losses=[float(x) for x in losses], events=events,
+        state=training_state(args.steps, params, optimizer, view_params, view_opt, dstate,
+                             generator),
+    )
+    if not primary:
+        return result
     save_gaussian_ply(os.path.join(args.out_dir, "scene_final.ply"), params)
     vp = {k: v.detach() for k, v in view_params.items()}
     if args.pose_opt:
@@ -488,11 +517,7 @@ def main(argv=None, on_step=None) -> dict:
     save_png(img.cpu().numpy(), os.path.join(args.out_dir, "render_view0.png"))
     save_png(targets[0].cpu().numpy(), os.path.join(args.out_dir, "target_view0.png"))
     print(f"Done: artifacts in {args.out_dir}")
-    return dict(
-        losses=[float(x) for x in losses], events=events,
-        state=training_state(args.steps, params, optimizer, view_params, view_opt, dstate,
-                             generator),
-    )
+    return result
 
 
 if __name__ == "__main__":

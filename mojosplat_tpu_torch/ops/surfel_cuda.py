@@ -84,6 +84,21 @@ def primed_surfel_columns(columns, camera: Camera) -> tuple:
     return (*prime(qcx, qcy, qcz), *prime(ax, ay, az), *prime(bx, by, bz), c2x, c2y, op)
 
 
+def slab_primed_columns(pcols, row0) -> list:
+    """The 12 primed columns for a slab whose first image row is ``row0``:
+    the kernels see slab-row pixels, ``py = py_image - row0``, so the y
+    rows take the shift (A21 = a1' - py_image a2 = (a1' - row0 a2) - py
+    a2, and so for qc1' and b1') and the filter centre c2y moves with it.
+    The reference's own expressions, so both packages pack the same
+    records."""
+    out = list(pcols)
+    out[1] = pcols[1] - row0 * pcols[2]  # qc1'
+    out[4] = pcols[4] - row0 * pcols[5]  # a1'
+    out[7] = pcols[7] - row0 * pcols[8]  # b1'
+    out[10] = pcols[10] - row0  # c2y
+    return out
+
+
 def gather_surfel_tile_data(columns, slot_gids, counts) -> torch.Tensor:
     """(16 or 18, n_slots) f32 packed rows of the (N,) ``columns`` [primed
     qc(3), a(3), b(3), c2(2), opacity, rgb(3), and normals(3) with the

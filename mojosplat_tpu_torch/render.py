@@ -12,7 +12,10 @@ projected centres, so its cotangent is the view-space positional gradient;
 ``absgrad_sink``'s cotangent is the per-gaussian sum over tiles of the
 absolute per-tile view-space gradient (AbsGS / gsplat's absgrad).
 
-Not ported yet, and raising ``NotImplementedError``: ``viewport_rows``.
+``viewport_rows=(row0, h)`` renders only the image rows ``[row0, row0 +
+h)``, a slab of whole tile rows (the tile-row slab of the sharded paths in
+``parallel/``): screen-space y is shifted by ``row0`` before binning, and
+projection and culling are those of the full camera.
 """
 
 from __future__ import annotations
@@ -33,6 +36,22 @@ class RenderAux(NamedTuple):
     binning: BinningAux
     raster: RasterAux
     visible: torch.Tensor | None = None  # (N,) bool: projected with a radius
+
+
+def slab_means2d(means2d: torch.Tensor, img_height: int, viewport_rows,
+                 config: RenderConfig) -> tuple[torch.Tensor, int]:
+    """(means2d in the slab's rows, the slab's height) for ``viewport_rows``
+    ``(row0, h)``; the full image's for None. Raises unless ``h`` is a
+    multiple of the tile size."""
+    if viewport_rows is None:
+        return means2d, img_height
+    row0, out_h = viewport_rows
+    if out_h % config.tile_size != 0:
+        raise ValueError(
+            f"viewport height {out_h} must be a multiple of tile_size {config.tile_size}")
+    shift = torch.stack([torch.zeros((), dtype=means2d.dtype, device=means2d.device),
+                         torch.as_tensor(row0, dtype=means2d.dtype, device=means2d.device)])
+    return means2d - shift, out_h
 
 
 def render_gaussians(
@@ -58,10 +77,9 @@ def render_gaussians(
     With ``return_aux`` the last element is a ``RenderAux`` of counters.
     ``means2d_offset`` and ``absgrad_sink`` are zero (N, 2) tensors whose
     gradients are the densification statistics (see the module note).
+    ``viewport_rows=(row0, h)``: the (h, W, C) slab of image rows starting
+    at ``row0``; ``h`` must be a multiple of the tile size.
     """
-    if viewport_rows is not None:
-        raise NotImplementedError("viewport_rows is not ported yet")
-
     if sh_degree is None:
         if features.ndim != 2:
             raise ValueError(
@@ -95,19 +113,20 @@ def render_gaussians(
     proj = project_gaussians(means3d, scales, quats, opacities, camera, config)
     if means2d_offset is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    means2d, out_h = slab_means2d(proj.means2d, camera.H, viewport_rows, config)
     if config.antialiased:
         opacities = opacities * proj.compensations
 
     binning = bin_gaussians_to_tiles(
-        proj.means2d, proj.radii, proj.depths, camera.H, camera.W, config,
+        means2d, proj.radii, proj.depths, out_h, camera.W, config,
         conics=proj.conics, opacities=opacities,
     )
     if return_depth:
         colors = torch.cat([colors, proj.depths[:, None].to(colors.dtype)], dim=-1)
         background = torch.cat([background, background.new_zeros((1,))])
     image, raster_aux = rasterize_gaussians(
-        proj.means2d, proj.conics, colors, opacities, background, binning,
-        camera.H, camera.W, config, absgrad_sink=absgrad_sink,
+        means2d, proj.conics, colors, opacities, background, binning,
+        out_h, camera.W, config, absgrad_sink=absgrad_sink,
     )
     out = (image,)
     if return_depth:

@@ -35,9 +35,14 @@ with ``(xn, yn)`` from inverting the equidistant lens at each pixel
 pinhole, and ortho without the maps (primed so its z rows read ``(1, 0,
 0)``, ``primed_surfel_columns``); as in the reference, the ``"cuda"``
 route raises ``NotImplementedError`` for fisheye and for ortho with the
-maps, which the ``"torch"`` route renders. Not ported yet, and raising
-``NotImplementedError``: ``viewport_rows`` (the tile-row slab of the
-sharded trainer).
+maps, which the ``"torch"`` route renders.
+
+``viewport_rows=(row0, h)`` renders the slab of image rows ``[row0, row0 +
+h)`` (the tile-row slab of the sharded paths in ``parallel/``): the centres
+are binned in slab rows; the ``"torch"`` route adds ``row0`` back to each
+pixel's y inside the alpha, and the ``"cuda"`` route folds the shift into
+the primed y rows (``slab_primed_columns``), so the kernels read slab-row
+pixels unchanged.
 """
 
 from __future__ import annotations
@@ -53,8 +58,13 @@ from .ops.projection import apply_lens, clip, project_gaussians
 from .ops.rasterization import RasterAux, _assemble, rasterize_torch_generic
 from .ops.sh import sh_to_color
 from .ops.slice_cuda import segment_slice_gather
-from .ops.surfel_cuda import gather_surfel_tile_data, primed_surfel_columns, raster_surfel_tiles
-from .render import RenderAux
+from .ops.surfel_cuda import (
+    gather_surfel_tile_data,
+    primed_surfel_columns,
+    raster_surfel_tiles,
+    slab_primed_columns,
+)
+from .render import RenderAux, slab_means2d
 
 _FILTER_SIGMA2 = 0.5  # (sqrt(2)/2)^2: the paper's screen-space low-pass
 _TINY_LOG_SCALE = -13.8  # exp() ~ 1e-6: the disk's "thickness" for binning
@@ -209,13 +219,14 @@ def _surfel_alphas(px, py, d, valid, camera: Camera, config: RenderConfig,
 
 
 def bin_surfels(means3d, scales, quats, opacities, camera: Camera,
-                config: RenderConfig):
+                config: RenderConfig, viewport_rows=None):
     """Tile binning of the surfels: the 3DGS projection and binning of the
     flattened gaussian (log-scales ``(s_u, s_v, -13.8)``), with the
     surviving radii widened to the low-pass filter's support, where the
     filter keeps alpha above the threshold: ceil(sqrt(2 * 0.5 *
     log(opacity / threshold))) px. (The EWA bound of an edge-on disk's thin
-    axis is narrower.)"""
+    axis is narrower.) With ``viewport_rows=(row0, h)`` the tiles are those
+    of the slab's h rows."""
     N = means3d.shape[0]
     scales3 = torch.cat([scales[:, :2], torch.full((N, 1), _TINY_LOG_SCALE,
                                                    dtype=scales.dtype, device=scales.device)],
@@ -227,15 +238,17 @@ def bin_surfels(means3d, scales, quats, opacities, camera: Camera,
     )).to(proj.radii.dtype)
     radii = torch.where(proj.radii > 0, torch.maximum(proj.radii, filter_r[:, None]),
                         proj.radii)
-    return bin_gaussians_to_tiles(proj.means2d, radii, proj.depths, camera.H, camera.W, config)
+    means2d, out_h = slab_means2d(proj.means2d, camera.H, viewport_rows, config)
+    return bin_gaussians_to_tiles(means2d, radii, proj.depths, out_h, camera.W, config)
 
 
 def pack_surfel_tiles(means3d, scales, quats, opacities, colors, camera: Camera, binning,
-                      config: RenderConfig, maps: bool):
+                      config: RenderConfig, maps: bool, row0=0):
     """The ``"cuda"`` route's input to the surfel blend kernels: (pdata,
     counts), the packed slot table (16 rows, 18 with the ``maps``) of the
     tiles' first ``tile_capacity`` slots, cut from the binning by B5, and
-    the (n_tiles,) int32 counts of slots to blend."""
+    the (n_tiles,) int32 counts of slots to blend. ``row0``: the first
+    image row of a slab binning (``viewport_rows``)."""
     if colors.shape[-1] != 3:
         raise ValueError(f"the surfel kernels blend 3 colour channels, got {colors.shape[-1]}")
     cap = config.tile_capacity
@@ -243,7 +256,10 @@ def pack_surfel_tiles(means3d, scales, quats, opacities, colors, camera: Camera,
     counts = torch.clamp(ranges[:, 1] - ranges[:, 0], 0, cap).to(torch.int32)
     slot_gids = segment_slice_gather(binning.gaussian_ids, ranges[:, 0].contiguous(), cap)
     cols = surfel_alpha_columns(means3d, scales, quats, opacities, camera)
-    pcols = list(primed_surfel_columns(cols, camera)) + [colors[:, c] for c in range(3)]
+    pcols = list(primed_surfel_columns(cols, camera))
+    if row0:
+        pcols = slab_primed_columns(pcols, row0)
+    pcols += [colors[:, c] for c in range(3)]
     if maps:
         pcols += list(oriented_normal_columns(cols))
     return gather_surfel_tile_data(pcols, slot_gids, counts), counts
@@ -275,8 +291,6 @@ def render_surfels(
       - ``return_distortion``: the (H, W) depth-distortion map
         ``2 (alpha sum(w z^2) - sum(w z)^2)``, the paper's regulariser.
     """
-    if viewport_rows is not None:
-        raise NotImplementedError("viewport_rows is not ported yet")
     if config.raster_impl not in ("torch", "cuda"):
         raise ValueError(f"Unknown raster_impl: {config.raster_impl!r}")
     want_vals = return_depth or return_distortion
@@ -299,13 +313,14 @@ def render_surfels(
         background = torch.as_tensor(background_color, dtype=features.dtype,
                                      device=features.device)
 
-    binning = bin_surfels(means3d, scales, quats, opacities, camera, config)
-    H, W = camera.H, camera.W
+    binning = bin_surfels(means3d, scales, quats, opacities, camera, config, viewport_rows)
+    row0, H = (0, camera.H) if viewport_rows is None else viewport_rows
+    W = camera.W
     if config.raster_impl == "cuda":
         ts = config.tile_size
         th, tw = num_tiles(H, W, ts)
         pdata, counts = pack_surfel_tiles(means3d, scales, quats, opacities, colors, camera,
-                                          binning, config, want_maps)
+                                          binning, config, want_maps, row0)
         out = raster_surfel_tiles(pdata, counts, ts, tw, config, want_maps)
         # Channel-major (n_tiles, oc, P): rgb(0:3), pad, T(4); with the
         # maps rgb(0:3), normals(3:6), m1(6), m2(7), T(8).
@@ -334,7 +349,8 @@ def render_surfels(
             [background, background.new_zeros((colors_ext.shape[-1] - 3,))])
 
         def alpha_fn(px, py, safe, valid):
-            return _surfel_alphas(px, py, data[safe], valid, camera, config,
+            # py arrives in slab rows; the response is defined in image rows.
+            return _surfel_alphas(px, py + row0, data[safe], valid, camera, config,
                                   with_depth=want_vals)
 
         img, raster_aux = rasterize_torch_generic(

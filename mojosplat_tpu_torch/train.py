@@ -13,13 +13,25 @@ from __future__ import annotations
 from typing import Callable, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .camera import Camera
 from .config import DEFAULT_CONFIG, RenderConfig
 from .densify import DensifyState, accumulate_stats
 from .ops.sh import num_sh_bases
+from .params import activate  # also train.activate, as in the reference
+from .parallel.sharding import (
+    Mesh,
+    all_gather_parts,
+    all_reduce_sum,
+    check_slab_divisibility,
+    local_cameras,
+    render_slabs,
+)
+# zero1_rows: also train.zero1_rows, the reference's train._zero1_rows.
+from .parallel.zero1 import all_reduce_grads, clear_grads, replicated_update, zero1_rows
 from .render import render_gaussians
-from .surfel import normal_consistency_terms, render_surfels
+from .surfel import expected_depth_map, normal_consistency_terms, render_surfels
 
 
 def init_gaussians(
@@ -53,13 +65,6 @@ def init_gaussians(
         features[:, 0, :] = rand(n, 3) - 0.5
     return dict(means3d=means3d, scales=scales, quats=quats,
                 opacities_raw=opacities_raw, features=features)
-
-
-def activate(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Raw (trainable) params -> render params (sigmoid on opacities)."""
-    out = dict(params)
-    out["opacities"] = torch.sigmoid(out.pop("opacities_raw"))
-    return out
 
 
 def l2_image_loss(rendered: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -312,16 +317,153 @@ def train_step_surfel(
     the paper's distortion and normal-consistency regularisers; returns the
     loss (detached).
 
-    The single-device counterpart of the reference's
-    ``train_step_sharded_surfel``, with the same global loss. Its mesh of
-    cameras and tile-row slabs, the halo exchange and ZeRO-1 come with the
-    port of ``parallel/``.
+    The single-device counterpart of ``train_step_sharded_surfel``, with
+    the same global loss.
     """
     optimizer.zero_grad(set_to_none=True)
     loss = surfel_loss(params, cameras, targets, sh_degree, config, normal_weight,
                        distortion_weight)
     loss.backward()
     optimizer.step()
+    return loss.detach()
+
+
+def train_step_sharded(
+    params: Mapping[str, torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    cameras: Sequence[Camera],  # the global batch of B cameras, the same on every rank
+    targets: torch.Tensor,  # this rank's (B / n_data, H / n_tile, W, C) block
+    mesh: Mesh,
+    sh_degree: int | None = None,
+    config: RenderConfig = DEFAULT_CONFIG,
+    loss_extra: Callable[[Mapping[str, torch.Tensor]], torch.Tensor] | None = None,
+    zero1: Mapping[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One training step over a (``"data"``, ``"tile"``) mesh; returns the
+    global loss (detached).
+
+    Each rank renders its cameras' tile-row slab and differentiates the
+    local sum of squares; the parameter gradients are all-reduced over the
+    mesh and divided by the global element count, so every rank applies
+    the same update to its replica of the parameters.
+    ``sharding.batch_block`` cuts a rank's ``targets`` from the full batch.
+
+    ``loss_extra(params) -> scalar`` adds a regulariser (e.g.
+    ``densify.mcmc_regularization``): the parameters are replicated, so it
+    is evaluated on every rank and not reduced over the mesh.
+
+    ``zero1``: this rank's ZeRO-1 shard (``zero1_rows(params, mesh)``),
+    the leaves ``optimizer`` holds. After the all-reduce each rank steps
+    only its 1/n slice of every parameter's rows (the moments of that
+    slice live on it alone) and the slices are all-gathered back, for the
+    moments' memory cut by n; equal to the replicated update. None:
+    ``optimizer`` holds ``params`` and steps them on every rank.
+    """
+    n_tile = mesh.shape["tile"]
+    slab_h = check_slab_divisibility(cameras[0].H, n_tile, config)
+    row0 = mesh.index("tile") * slab_h
+    cams = local_cameras(cameras, mesh)
+    if len(cams) != targets.shape[0]:
+        raise ValueError(f"{len(cams)} local cameras for {targets.shape[0]} targets")
+    clear_grads(params, optimizer)
+    imgs = render_slabs(activate(params), cams, row0, slab_h, sh_degree, None, config)
+    local = torch.sum((imgs - targets) ** 2)
+    local.backward()
+    denom = float(targets.numel() * mesh.size)  # the global element count
+    loss = local.detach().clone()
+    dist.all_reduce(loss, group=mesh.group)
+    all_reduce_grads(params, mesh)
+    for p in params.values():
+        p.grad.div_(denom)
+    loss = loss / denom
+    if loss_extra is not None:
+        reg = loss_extra(params)
+        reg.backward()  # adds to the reduced gradients
+        loss = loss + reg.detach()
+    replicated_update(params, optimizer, mesh, zero1)
+    return loss
+
+
+def _halo_rows(ed: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expected-depth rows just outside this rank's slabs, (B_local, W)
+    each: the last row of the slab above and the first row of the slab
+    below, by one all-gather of every slab's edge rows along the tile axis;
+    the image's own edges take reflective ghosts (2 d0 - d1)."""
+    n_tile, t = mesh.shape["tile"], mesh.index("tile")
+    edges = torch.stack([ed[:, 0], ed[:, -1]], dim=1)  # (B_local, 2, W)
+    parts = all_gather_parts(edges, mesh.axis_groups["tile"])
+    top = 2.0 * ed[:, 0] - ed[:, 1] if t == 0 else parts[t - 1][:, 1]
+    bot = 2.0 * ed[:, -1] - ed[:, -2] if t == n_tile - 1 else parts[t + 1][:, 0]
+    return top, bot
+
+
+def train_step_sharded_surfel(
+    params: Mapping[str, torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    cameras: Sequence[Camera],  # the global batch of B cameras, the same on every rank
+    targets: torch.Tensor,  # this rank's (B / n_data, H / n_tile, W, 3) block
+    mesh: Mesh,
+    sh_degree: int | None = None,
+    config: RenderConfig = DEFAULT_CONFIG,
+    normal_weight: float = 0.0,
+    distortion_weight: float = 0.0,
+    zero1: Mapping[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """2DGS (surfel) training step over a (``"data"``, ``"tile"``) mesh,
+    with the depth-distortion and normal-consistency regularisers computed
+    per slab; returns the global loss (detached), ``surfel_loss`` of the
+    whole batch.
+
+    Each rank renders its cameras' slab with the maps. The normal
+    stencil's finite differences need one expected-depth row from each
+    neighbouring slab: a halo exchange (``_halo_rows``) brings it, and the
+    image's edges take the single-device render's reflective ghosts. The
+    four loss terms are summed over the mesh inside the differentiated
+    loss (``all_reduce_sum``, whose backward all-reduces the cotangent, as
+    the reference's psum transposes), then the parameter gradients are
+    all-reduced and every rank applies the same update.
+
+    As in the reference, the gradient comes out n_dev = n_data * n_tile
+    times the single-device gradient of the same loss: the cotangent is
+    summed once by the reduction's backward and again by the gradient
+    all-reduce. With SGD at lr 1 on the CPU, the reference's sharded
+    gradient is 2.000x the single-device one on a (1, 2) mesh (ROADMAP.md,
+    Queue C, "Open in the reference"); this port reproduces it for parity.
+    ``zero1``: as in ``train_step_sharded``.
+    """
+    n_tile = mesh.shape["tile"]
+    slab_h = check_slab_divisibility(cameras[0].H, n_tile, config)
+    row0 = mesh.index("tile") * slab_h
+    cams = local_cameras(cameras, mesh)
+    if len(cams) != targets.shape[0]:
+        raise ValueError(f"{len(cams)} local cameras for {targets.shape[0]} targets")
+    npix_global = targets.numel() * mesh.size
+    clear_grads(params, optimizer)
+
+    outs = render_slabs(activate(params), cams, row0, slab_h, sh_degree, None, config,
+                        primitive="2dgs", return_aux=True, return_depth=True,
+                        return_normals=True, return_distortion=True)
+    with torch.no_grad():
+        ed = torch.stack([expected_depth_map(depth, aux.raster.final_transmittance)[0]
+                          for _, depth, _, _, aux in outs])
+        ghost_top, ghost_bot = _halo_rows(ed, mesh)
+    photo = dist_sum = num = den = 0.0
+    for b, ((img, depth, normal, distortion, aux), cam) in enumerate(zip(outs, cams)):
+        n_b, d_b = normal_consistency_terms(depth, normal, aux.raster.final_transmittance, cam,
+                                            row0=row0, ghost_rows=(ghost_top[b], ghost_bot[b]))
+        photo = photo + torch.sum((img - targets[b]) ** 2)
+        dist_sum = dist_sum + torch.sum(distortion)
+        num, den = num + n_b, den + d_b
+    terms = all_reduce_sum(torch.stack([photo, dist_sum, num, den]), mesh.group)
+    photo, dist_sum, num, den = terms.unbind()
+    loss = photo / npix_global
+    if distortion_weight:
+        loss = loss + distortion_weight * dist_sum / (npix_global // 3)
+    if normal_weight:
+        loss = loss + normal_weight * num / torch.clamp(den, min=1.0)
+    loss.backward()
+    all_reduce_grads(params, mesh)
+    replicated_update(params, optimizer, mesh, zero1)
     return loss.detach()
 
 

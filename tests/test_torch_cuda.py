@@ -982,3 +982,51 @@ def test_viewer_handler_cuda(dev, tmp_path):
     assert [fn.launches for fn in counters] == [1, 1, 1]
     want = to_uint8(v.render(0.7, 0.1, v.radius0).cpu().numpy())
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(body)).convert("RGB")), want)
+
+
+@pytest.mark.parametrize("family", ["3dgs", "2dgs"])
+def test_viewport_slabs_match_full_render(dev, family):
+    """``viewport_rows`` on the "cuda" route (B1/B2, or B7/B8 with the maps):
+    2 and 4 slabs of a 128-row view against the rows of the full render by
+    B1's rule, and the gradient of the summed slab losses against the full
+    render's by B2's rule. The slab's y shift rounds otherwise than the
+    full render (for disks it sits in the primed columns), so the rules,
+    not bit-equality."""
+    H, W, n = 128, 160, 2000
+    disks = family == "2dgs"
+    p, cam = _camera_scene(dev, n, H, W, {}, seed=11, disks=disks)
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.normal(size=(H, W, 3)).astype(np.float32)).to(dev)
+    wd = torch.from_numpy(rng.normal(size=(H, W)).astype(np.float32)).to(dev) * 0.1
+    # Room for every slot: the full render and a slab drop no intersection.
+    cfg = RenderConfig(raster_impl="cuda", tile_capacity=256, isect_padding_multiplier=16)
+    keys = ("scales", "quats", "opacities", "features")
+
+    def run(viewports):
+        means = p["means3d"].clone().requires_grad_(True)
+        imgs, loss = [], 0.0
+        for row0, h in viewports:
+            rows = slice(row0, row0 + h)
+            if disks:
+                img, depth, _ = render_surfels(means, *(p[k] for k in keys), cam, config=cfg,
+                                               return_depth=True, return_normals=True,
+                                               viewport_rows=(row0, h))
+                loss = loss + (depth * wd[rows]).sum()
+            else:
+                img = render_gaussians(means, *(p[k] for k in keys), cam, config=cfg,
+                                       viewport_rows=(row0, h))
+            loss = loss + (img * w[rows]).sum()
+            imgs.append(img.detach())
+        loss.backward()
+        return torch.cat(imgs), means.grad
+
+    img_full, g_full = run([(0, H)])
+    assert float(img_full.std()) > 0.02
+    for n_slab in (2, 4):
+        h = H // n_slab
+        img, g = run([(i * h, h) for i in range(n_slab)])
+        torch.cuda.synchronize()
+        _route_rules(f"{family} {n_slab} slabs", img, img_full, [g], [g_full])
+    render = render_surfels if disks else render_gaussians
+    with pytest.raises(ValueError):  # not whole tile rows
+        render(p["means3d"], *(p[k] for k in keys), cam, config=cfg, viewport_rows=(0, 40))

@@ -7,10 +7,12 @@
     tolerances of tests/test_golden.py;
 (c) the trained-scene loader, exactly equal to the JAX package's;
 (d) the port imports without jax;
-(e) what is not ported yet (``viewport_rows``) raises
-    ``NotImplementedError``; the options ported since (``tight_cull``,
-    ``means2d_offset``, ``absgrad_sink``) leave the forward unchanged, and
-    ``projection_mode="ut"`` renders as JAX's "xla" route;
+(e) the options ported since the first slice: ``viewport_rows`` renders
+    and differentiates on both routes as JAX's "xla" route does (the slab
+    within 1e-5, the means' gradient at the golden gradient tolerance);
+    ``tight_cull``, ``means2d_offset`` and ``absgrad_sink`` leave the
+    forward unchanged, and ``projection_mode="ut"`` renders as JAX's "xla"
+    route;
 (f) the densification sinks' cotangents on both port routes against JAX's
     "xla" route at the gradient tolerance (rtol 5e-5, atol 5e-6 x max|g|),
     and absgrad against JAX's "pallas" route at that route's own tolerance
@@ -183,8 +185,31 @@ def test_unported_options_raise():
     cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0,
                         cx=8.0, cy=8.0, device="cpu")
     args = [p[k] for k in KEYS] + [cam]
-    with pytest.raises(NotImplementedError):
-        render_gaussians(*args, sh_degree=3, viewport_rows=(0, 16))
+    # viewport_rows: rows [16, 32) of a 32-row camera, against JAX's slab.
+    jcam32 = JCamera.create(R=np.eye(3), T=np.zeros(3), H=32, W=16, fx=10.0, fy=10.0,
+                            cx=8.0, cy=16.0)
+    cam32 = camera_from_numpy(jax_camera_fields(jcam32), "cpu")
+    jargs = [jnp.asarray(p[k].numpy()) for k in KEYS]
+
+    def jslab(means3d):
+        img = jrender(means3d, *jargs[1:], jcam32, sh_degree=3, viewport_rows=(16, 16))
+        return jnp.sum(img), img
+
+    (_, want_slab), want_grad = jax.jit(jax.value_and_grad(jslab, has_aux=True))(jargs[0])
+    assert float(np.abs(np.asarray(want_slab)).max()) > 0.05
+    for route in ("torch", "cuda"):
+        means = p["means3d"].clone().requires_grad_(True)
+        got = render_gaussians(means, *args[1:-1], cam32, sh_degree=3,
+                               config=RenderConfig(raster_impl=route), viewport_rows=(16, 16))
+        assert got.shape == (16, 16, 3)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want_slab), rtol=0,
+                                   atol=ATOL, err_msg=route)
+        got.sum().backward()
+        np.testing.assert_allclose(means.grad.numpy(), np.asarray(want_grad), rtol=GOLDEN_RTOL,
+                                   atol=GOLDEN_ATOL * float(np.abs(want_grad).max()),
+                                   err_msg=f"{route} d means3d")
+    with pytest.raises(ValueError, match="multiple of tile_size"):
+        render_gaussians(*args, sh_degree=3, viewport_rows=(0, 8))
     # The UT projection, once refused here, renders as JAX's "xla" route.
     jcam = JCamera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0, cx=8.0,
                           cy=8.0)
@@ -204,13 +229,11 @@ def test_unported_options_raise():
                                    rtol=0, atol=1e-6)
     # Both routes differentiate: the torch route through plain autograd, the
     # cuda route through the blend backward and the gather's adjoint; the
-    # sinks take gradients on both, and viewport_rows still raises.
+    # sinks take gradients on both.
     grad_means = p["means3d"].clone().requires_grad_(True)
     grad_args = [grad_means] + args[1:]
     for route in ("torch", "cuda"):
         cfg = RenderConfig(raster_impl=route)
-        with pytest.raises(NotImplementedError):
-            render_gaussians(*grad_args, sh_degree=3, config=cfg, viewport_rows=(0, 16))
         for name in ("means2d_offset", "absgrad_sink"):
             sink = torch.zeros(8, 2, requires_grad=True)
             render_gaussians(*grad_args, sh_degree=3, config=cfg, **{name: sink}).sum().backward()

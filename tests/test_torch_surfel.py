@@ -8,10 +8,13 @@
 (b) ``render_surfels`` on the ``"torch"`` route against the JAX ``"xla"``
     route, with and without the maps, with SH and RGB features: every
     output and every drop counter;
-(c) the committed 2DGS golden forward on both port routes;
-(d) the plain versions of B6/B7 (``raster_surfel_tiles_plain``) and B8
-    (``raster_surfel_tiles_bwd_plain``) against the Pallas kernels and
-    their VJP in interpret mode.
+(c) the committed 2DGS golden forward on both port routes; the
+    ``viewport_rows`` slab on both routes against JAX's, with the means'
+    gradient (in ``test_unported_options_raise``, which holds the options
+    that were once refused);
+(d) the plain versions of B6/B7 and B8 against the Pallas kernels sit in
+    tests/test_torch_surfel_kernels.py (split off to keep each file under
+    30 s on one process).
 
 Tolerances: f32 values that the two packages compute with the same
 operations agree within 1e-6 absolute, or 1e-6 relative for values in
@@ -39,10 +42,7 @@ from mojosplat_tpu.ops import surfel_pallas as jpallas
 from mojosplat_tpu_torch import Camera, RenderConfig, config_from_jax, render_surfels
 from mojosplat_tpu_torch import surfel
 from mojosplat_tpu_torch.convert import camera_from_numpy, params_from_numpy
-from mojosplat_tpu_torch.ops.surfel_cuda import (
-    primed_surfel_columns, raster_surfel_tiles, raster_surfel_tiles_bwd_plain,
-    raster_surfel_tiles_plain)
-from torch_surfel_cases import surfel_pdata
+from mojosplat_tpu_torch.ops.surfel_cuda import primed_surfel_columns
 
 ROOT = Path(__file__).resolve().parent.parent
 KEYS = ("means3d", "scales", "quats", "opacities", "features")
@@ -231,57 +231,42 @@ def test_golden_2dgs_forward(route):
                                    err_msg=f"{route} {name}")
 
 
-def assert_rows_close(got, want, err_msg=""):
-    """The golden rule per pdata row."""
-    for r in range(want.shape[0]):
-        scale = float(np.abs(want[r]).max())
-        np.testing.assert_allclose(got[r], want[r], rtol=RTOL, atol=ATOL * (scale + 1e-12),
-                                   err_msg=f"{err_msg} row {r}")
-
-
-@pytest.mark.parametrize("aux", [False, True])
-def test_plain_kernels_match_pallas(aux):
-    rng = np.random.default_rng(20 + aux)
-    ts, tw, n_tiles, cap = 16, 2, 4, 64
-    pdata = surfel_pdata(rng, n_tiles, tw, ts, cap, aux)
-    counts = np.array([0, 19, 64, 50], np.int32)
-    oc = 9 if aux else 5
-    gout = rng.normal(size=(n_tiles, oc, ts * ts)).astype(F32)
-    jcfg = JConfig(tile_size=ts, tile_capacity=cap, chunk_size=32, raster_impl="pallas",
-                   pallas_chunk=32, pallas_tiles_per_step=2, pallas_interpret=True)
-    out, vjp = jax.vjp(
-        lambda pd: jpallas.raster_surfel_tiles_pallas(pd, jnp.asarray(counts), ts, tw, jcfg, aux),
-        jnp.asarray(pdata))
-    (d_want,) = vjp(jnp.asarray(gout))
-    cfg = config_from_jax(dataclasses.asdict(jcfg))
-    t = torch.from_numpy
-    got = raster_surfel_tiles_plain(t(pdata), t(counts), ts, tw, cfg, aux)
-    assert got.shape == (n_tiles, oc, ts * ts)
-    # The output's rows: the blended channels, the depth moments, T.
-    assert_rows_close(got.transpose(0, 1).reshape(oc, -1).numpy(),
-                      np.asarray(out).transpose(1, 0, 2).reshape(oc, -1), f"aux={aux} out")
-    assert float(got[:, -1].min()) < 0.05  # some pixels are nearly covered
-    d_got = raster_surfel_tiles_bwd_plain(t(pdata), t(counts), t(gout), ts, tw, cfg, aux)
-    assert d_got.shape == pdata.shape
-    assert_rows_close(d_got.numpy(), np.asarray(d_want), f"aux={aux} d pdata")
-    # Nothing past each tile's count; the autograd Function gives the same.
-    d = d_got.reshape(pdata.shape[0], n_tiles, cap)
-    assert torch.all(d[:, 0] == 0) and torch.all(d[:, 1, 19:] == 0)
-    pd = t(pdata).requires_grad_(True)
-    (raster_surfel_tiles(pd, t(counts), ts, tw, cfg, aux) * t(gout)).sum().backward()
-    assert torch.equal(pd.grad, d_got)
-
-
 def test_unported_options_raise():
     p = params_from_numpy(surfel_scene(7, n=16), "cpu")
     cam = Camera.create(R=np.eye(3), T=np.zeros(3), H=16, W=16, fx=10.0, fy=10.0, cx=8.0,
                         cy=8.0, device="cpu")
     args = [p[k] for k in KEYS]
     fisheye = dataclasses.replace(cam, camera_model="fisheye")
+    # viewport_rows, once refused: rows [16, 32) of a 32-row camera with the
+    # maps, on both routes (the "cuda" route's plain kernels read the
+    # slab-shifted primed columns), against JAX's slab on the "xla" route,
+    # with the means' gradient of the image and depth.
+    jcam32 = JCamera.create(R=np.eye(3), T=np.zeros(3), H=32, W=16, fx=10.0, fy=10.0,
+                            cx=8.0, cy=16.0)
+    cam32 = camera_from_numpy(jax_camera_fields(jcam32), "cpu")
+    jargs = [jnp.asarray(p[k].numpy()) for k in KEYS]
+    kw = dict(return_depth=True, return_normals=True, viewport_rows=(16, 16))
+
+    def jslab(means3d):
+        img, depth, normal = jsurfel.render_surfels(means3d, *jargs[1:], jcam32,
+                                                    config=JConfig(raster_impl="xla"), **kw)
+        return jnp.sum(img) + 0.1 * jnp.sum(depth), (img, depth, normal)
+
+    (_, want), want_grad = jax.jit(jax.value_and_grad(jslab, has_aux=True))(jargs[0])
+    assert float(np.abs(np.asarray(want[0])).max()) > 0.05
     for route in ("torch", "cuda"):
-        cfg = RenderConfig(raster_impl=route)
-        with pytest.raises(NotImplementedError):
-            render_surfels(*args, cam, config=cfg, viewport_rows=(0, 16))
+        means = p["means3d"].clone().requires_grad_(True)
+        got = render_surfels(means, *args[1:], cam32, config=RenderConfig(raster_impl=route),
+                             **kw)
+        assert got[0].shape == (16, 16, 3)
+        for name, a, b in zip(("image", "depth", "normals"), got, want):
+            scale = float(np.abs(np.asarray(b)).max()) + 1.0
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-5 * scale, err_msg=f"{route} {name}")
+        (got[0].sum() + 0.1 * got[1].sum()).backward()
+        np.testing.assert_allclose(means.grad.numpy(), np.asarray(want_grad), rtol=RTOL,
+                                   atol=ATOL * float(np.abs(want_grad).max()),
+                                   err_msg=f"{route} d means3d")
     # The fisheye raises on the "cuda" route only, as on JAX's "pallas" route
     # (the kernels make no per-pixel lens inversion); "torch" renders it.
     with pytest.raises(NotImplementedError):

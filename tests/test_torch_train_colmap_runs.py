@@ -79,9 +79,14 @@ def test_train_cli_2dgs(capture, tmp_path, capsys):
     assert "[mcmc:" in out
 
 
-def test_cli_refuses(capture, tmp_path):
+def test_cli_refuses(capture, tmp_path, monkeypatch):
     base = ["--data", str(capture), "--out-dir", str(tmp_path), "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # --multihost with no rendezvous configured (neither the MOJOSPLAT_*
+    # variables nor torchrun's): init_multihost raises.
+    for k in ("MOJOSPLAT_COORDINATOR", "MOJOSPLAT_NUM_PROCESSES", "MOJOSPLAT_PROCESS_ID",
+              "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="needs a rendezvous"):
         train_colmap.main(base + ["--device", "cpu", "--impl", "torch", "--multihost"])
     # The card by default: there is none here, so the defaults raise.
     with pytest.raises(SystemExit, match="is_available"):
