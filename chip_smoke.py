@@ -229,6 +229,30 @@ exits nonzero without printing the final result line:
      them to (b)'s single-device results (the surfel step's gradient to
      twice the single device's: the reference's n_dev x, ROADMAP Queue C).
      A rank that fails or outlives PAR_TIMEOUT_S fails the phase.
+ 18. The tools (the phase 18 constants below), each through its CLI's
+     main(argv) on the card: (a) benchmark_proj, EWA and UT at
+     1920x1080 over TOOLS_PROJ_COUNTS, six finite, positive results and
+     no kernel launched; (b) benchmark at its defaults (100k gaussians,
+     800x608) on both routes, then at TOOLS_BENCH_N at 1920x1080 on
+     "cuda", every stage's launches counted through its time_stage hook:
+     BENCH_STAGE_KERNELS on "cuda" (B4 in the binning, B5 and B1 in the
+     rasterization, B4, B5, B1 in the forward, and B2 and B3 as well in
+     the forward + backward), once a call, and nothing on "torch";
+     num_isects equal on both routes at 100k; (c) make_synth_colmap at its
+     defaults (512x512, 28 views, 30,000 SfM points, ~150k gaussians)
+     under TOOLS_DIR, B4, B5 and B1 once a view and nothing else; view 0
+     re-rendered with the maker's config and camera on both routes by the
+     B1 rule, its PNG equal to to_uint8 of the "cuda" render byte for
+     byte; resample_sfm to TOOLS_RESAMPLE points (host only, no kernel),
+     the count read back with load_scene; train_colmap for
+     TOOLS_TRAIN_STEPS steps on that capture at full size, B1-B5 once a
+     step and nothing else, finite losses and a non-empty PLY; (d)
+     record_parity into TOOLS_DIR, one family a call (each call resumes
+     the file): the 3DGS records' forward by the B1 rule and their largest
+     relative gradient difference within GRAD_MAX_REL (the record keeps
+     each gradient's maximum only), the 2DGS record by the route rule; the
+     launches of each record (B6 and B8 on the disks, whose render has no
+     maps) and the record's JSON printed. Times are printed, not gated.
 
 The route rule: the two routes compute the surfel alpha in different
 coordinates (normalised on the "torch" route, intrinsics-primed in the
@@ -245,7 +269,9 @@ probe's run, one entry per variant; launches_cameras: in one pose step of
 phase 14 for B1-B5, in the ortho disks' backward for B6 and B8;
 launches_capture_3dgs / _2dgs: in each step of phase 15's runs;
 launches_scene_tools: per unit of each phase 16 tool that runs it;
-launches_sharded: per rank and step of each phase 17 (c) path), its max
+launches_sharded: per rank and step of each phase 17 (c) path;
+launches_cli_tools: per stage call, view, step or record of each phase 18
+tool), its max
 abs error against the plain version, its times and its bound (for B6-B8,
 as for B1 and B2, counting the per-pair work only on the walked pairs
 whose (pixel row, slot) pair the row test keeps, plus the row tests; B9
@@ -263,7 +289,6 @@ import math
 import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import time
@@ -451,6 +476,20 @@ PAR_EXACT = dict(SCENE_BUDGETS, tight_cull=False, max_tile_span=36)
 PAR_GAUSS_STEPS = 3
 PAR_DIR = ROOT / "build" / "parallel"
 PAR_TIMEOUT_S = 420
+
+# Phase 18, the tools through their CLIs: benchmark_proj over
+# TOOLS_PROJ_COUNTS at H x W; benchmark at its defaults on both routes,
+# then at TOOLS_BENCH_N gaussians at H x W on "cuda", each stage launching
+# BENCH_STAGE_KERNELS on "cuda" and nothing on "torch"; the capture maker
+# at its defaults under TOOLS_DIR, its SfM cloud resampled to
+# TOOLS_RESAMPLE points, and TOOLS_TRAIN_STEPS train_colmap steps on it;
+# record_parity's three records. Times are printed, never gated.
+TOOLS_PROJ_COUNTS, TOOLS_BENCH_N = (1_000, 100_000, 1_000_000), 1_000_000
+TOOLS_RESAMPLE, TOOLS_TRAIN_STEPS = 200_000, 10
+TOOLS_DIR = ROOT / "build" / "tools"
+BENCH_STAGE_KERNELS = {"projection": (), "binning": ("B4",), "rasterization": ("B5", "B1"),
+                       "e2e_forward": ("B4", "B5", "B1"),
+                       "e2e_fwd_bwd": ("B4", "B5", "B1", "B2", "B3")}
 
 
 def phase(name: str, msg: str) -> None:
@@ -1761,7 +1800,8 @@ def write_capture(root: Path, raw: dict, sh_degree: int) -> dict:
     from mojosplat_tpu_torch.convert import params_from_numpy
     from mojosplat_tpu_torch.ops.sh import _C0
     from mojosplat_tpu_torch.train import activate
-    from mojosplat_tpu_torch.utils.colmap import qvec_to_rotmat
+    from mojosplat_tpu_torch.utils.colmap import (qvec_to_rotmat, write_cameras_bin,
+                                                  write_images_bin, write_points3d_bin)
     from mojosplat_tpu_torch.utils.image import save_png
     from mojosplat_tpu_torch.utils.scenes import scene_camera
 
@@ -1789,8 +1829,7 @@ def write_capture(root: Path, raw: dict, sh_degree: int) -> dict:
     sparse = root / "sparse" / "0"
     (root / "images").mkdir(parents=True, exist_ok=True)
     sparse.mkdir(parents=True, exist_ok=True)
-    with open(sparse / "cameras.bin", "wb") as f:
-        f.write(struct.pack("<QiiQQ4d", 1, 1, 1, W, H, fx, fx, cx, cy))
+    write_cameras_bin(str(sparse / "cameras.bin"), [(1, 1, W, H, (fx, fx, cx, cy))])
 
     # The SfM cloud: CAPTURE_POINTS of the scene's gaussians, their SH DC
     # as colour, each observed in every view where it projects in frame.
@@ -1798,27 +1837,20 @@ def write_capture(root: Path, raw: dict, sh_degree: int) -> dict:
     pick = np.random.default_rng(CAPTURE_SEED).choice(n, CAPTURE_POINTS, replace=False)
     xyz = raw["means3d"][pick].astype(np.float64)
     rgb = np.round(np.clip(raw["features"][pick, 0] * _C0 + 0.5, 0, 1) * 255).astype(np.uint8)
-    obs = np.dtype([("x", "<f8"), ("y", "<f8"), ("id", "<i8")])
     tracks = [[] for _ in range(CAPTURE_POINTS)]
-    with open(sparse / "images.bin", "wb") as f:
-        f.write(struct.pack("<Q", len(poses)))
-        for j, (name, q, t) in enumerate(poses):
-            pc = xyz @ qvec_to_rotmat(q).T + t
-            z = pc[:, 2]
-            u = fx * pc[:, 0] / np.where(z > 0, z, 1.0) + cx
-            v = fx * pc[:, 1] / np.where(z > 0, z, 1.0) + cy
-            seen = np.flatnonzero((z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H))
-            rec = np.zeros(seen.size, obs)
-            rec["x"], rec["y"], rec["id"] = u[seen], v[seen], seen + 1
-            f.write(struct.pack("<i4d3di", j + 1, *q, *t, 1) + name.encode() + b"\0")
-            f.write(struct.pack("<Q", seen.size) + rec.tobytes())
-            for k, p in enumerate(seen):
-                tracks[p].append((j + 1, k))
-    with open(sparse / "points3D.bin", "wb") as f:
-        f.write(struct.pack("<Q", CAPTURE_POINTS))
-        for p in range(CAPTURE_POINTS):
-            f.write(struct.pack("<Q3d3BdQ", p + 1, *xyz[p], *rgb[p], 0.5, len(tracks[p])))
-            f.write(np.asarray(tracks[p], "<i4").tobytes())
+    images = []
+    for j, (name, q, t) in enumerate(poses):
+        pc = xyz @ qvec_to_rotmat(q).T + t
+        z = pc[:, 2]
+        u = fx * pc[:, 0] / np.where(z > 0, z, 1.0) + cx
+        v = fx * pc[:, 1] / np.where(z > 0, z, 1.0) + cy
+        seen = np.flatnonzero((z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H))
+        images.append((j + 1, q, t, 1, name, np.stack([u[seen], v[seen]], -1), seen + 1))
+        for k, p in enumerate(seen):
+            tracks[p].append((j + 1, k))
+    write_images_bin(str(sparse / "images.bin"), images)
+    write_points3d_bin(str(sparse / "points3D.bin"), xyz, rgb,
+                       ids=np.arange(1, CAPTURE_POINTS + 1), tracks=tracks)
 
     # The targets: the "cuda" route's renders of the whole scene.
     p = activate(params_from_numpy(raw, dev))
@@ -2423,7 +2455,7 @@ def counted(fn, expect: tuple, what: str):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = {k: getattr(wrapper, attr) for k, (wrapper, attr) in wrappers.items()}
-    if min(counts[k] for k in expect) < 1 or any(v for k, v in counts.items() if k not in expect):
+    if any(counts[k] < 1 for k in expect) or any(v for k, v in counts.items() if k not in expect):
         raise AssertionError(f"{what}: launches {counts}; expected {expect} and no other")
     return out, counts, ms
 
@@ -2938,6 +2970,180 @@ def parallel_phase(raw: dict, smi: str) -> dict:
             "render_2dgs": r0["render_2dgs"]}
 
 
+# ---- Phase 18: the tools
+
+
+def tools_phase(smi: str) -> dict:
+    """Phase 18: the tools through their CLIs' ``main(argv)`` on the card
+    (see the phase 18 constants above). Returns, per kernel, its launches
+    per unit of each tool that runs it (a stage call, a view, a record; each
+    checked exactly)."""
+    from PIL import Image
+
+    from mojosplat_tpu_torch.examples import (
+        benchmark, benchmark_proj, make_synth_colmap, record_parity, resample_sfm, train_colmap)
+    from mojosplat_tpu_torch.utils import colmap as cm
+    from mojosplat_tpu_torch.utils.image import to_uint8
+    from mojosplat_tpu_torch.utils.metrics import amortized_ms
+    from mojosplat_tpu_torch.ops.surfel_cuda import raster_surfel_tiles_fwd
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    per_unit = {}
+
+    def note(kid: str, tool: str, count: int, units: int) -> None:
+        if count % units:
+            raise AssertionError(f"tools: {tool}: {kid} launched {count} times in {units} units")
+        per_unit.setdefault(kid, {})[tool] = count // units
+
+    # ---- (a) benchmark_proj: no kernel, EWA and UT at 1080p
+    argv = ["--impls", "ewa", "ut", "--gaussians", *map(str, TOOLS_PROJ_COUNTS),
+            "--height", str(H), "--width", str(W)]
+    out, _, ms = counted(lambda: benchmark_proj.main(argv), (), "benchmark_proj")
+    res = out["results"]
+    if len(res) != 2 * len(TOOLS_PROJ_COUNTS) or not all(
+            math.isfinite(v) and v > 0 for r in res for v in (r.mean_ms, r.min_ms, r.max_ms)):
+        raise AssertionError(f"benchmark_proj: results {res}")
+    phase("tools-18", f"benchmark_proj at {W}x{H} in {ms / 1e3:.1f} s: " + ", ".join(
+        f"{r.name} {r.n_gaussians} {r.mean_ms:.4f} ms" for r in res) + f"; {smi}")
+
+    # ---- (b) benchmark: every stage's launches on both routes
+    def time_stage(impl, name, fn, fn_args, iters):
+        expect = BENCH_STAGE_KERNELS[name] if impl == "cuda" else ()
+        t, counts, _ = counted(lambda: amortized_ms(fn, fn_args, iters), expect,
+                               f"benchmark {impl} {name}")
+        for kid in expect:  # an untimed call, one call and ``iters`` calls
+            note(kid, f"benchmark {name} per call", counts[kid], iters + 2)
+        return t
+
+    tables = {}
+    for argv in (["--impls", "torch", "cuda"],
+                 ["--impls", "cuda", "--gaussians", str(TOOLS_BENCH_N), "--height", str(H),
+                  "--width", str(W)]):
+        t0 = time.perf_counter()
+        table = benchmark.main(argv, time_stage=time_stage)
+        tables.update(table)
+        for (n, impl), r in table.items():
+            phase("tools-18", f"benchmark {impl} {n} gaussians: " + ", ".join(
+                f"{k} {v:.4f} ms" if k != "num_isects" else f"{k} {v}" for k, v in r.items())
+                + f"; {smi}")
+        phase("tools-18", f"benchmark {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
+    d = benchmark.build_parser().parse_args([])
+    n0 = d.gaussians[0]
+    if tables[(n0, "torch")]["num_isects"] != tables[(n0, "cuda")]["num_isects"]:
+        raise AssertionError(f"benchmark: num_isects differ across the routes at {n0}")
+
+    # ---- (c) the capture maker at its defaults, the resampler, train_colmap
+    cap = TOOLS_DIR / "synth_scene"
+    m = make_synth_colmap.build_parser().parse_args(["--out", str(cap)])
+    t0 = time.perf_counter()
+    made, counts, _ = counted(lambda: make_synth_colmap.main(["--out", str(cap)]),
+                              ("B4", "B5", "B1"), "make_synth_colmap")
+    for kid in ("B4", "B5", "B1"):
+        note(kid, "make_synth_colmap per view", counts[kid], made["views"])
+    phase("tools-18", f"make_synth_colmap: {made['gaussians']} gaussians, {made['views']} views "
+          f"at {m.width}x{m.height}, {made['sfm_points']} SfM points in "
+          f"{time.perf_counter() - t0:.1f} s; seconds a view (render and PNG) median "
+          f"{statistics.median(made['seconds']):.4f}, first {made['seconds'][0]:.4f}; qvec->R "
+          f"round trip {made['r_err']:.2e}; {smi}")
+    gt = make_synth_colmap.build_scene(np.random.default_rng(7), m.detail)
+    gt = {k: torch.from_numpy(v).to(dev) for k, v in gt.items()}
+    R0, T0 = make_synth_colmap.ring_cameras(m.views)[0]
+    cam0 = make_synth_colmap.view_camera(R0, T0, m.height, m.width, device=dev)
+    view = {impl: make_synth_colmap.render_view(gt, cam0, make_synth_colmap.render_config(impl))
+            for impl in ("cuda", "torch")}
+    blend_agreement("tools-18 maker view 0 cuda vs torch route", view["cuda"], view["torch"])
+    png = np.asarray(Image.open(cap / "images" / "view_000.png").convert("RGB"))
+    if not np.array_equal(png, to_uint8(view["cuda"].cpu().numpy())):
+        raise AssertionError("make_synth_colmap: view_000.png differs from the cuda render")
+    phase("tools-18", "view_000.png equals to_uint8 of the cuda-route render byte for byte")
+
+    t0 = time.perf_counter()
+    resampled, _, _ = counted(lambda: resample_sfm.main(
+        ["--root", str(cap), "--sfm-points", str(TOOLS_RESAMPLE)]), (), "resample_sfm")
+    scene = cm.load_scene(str(cap / "sparse" / "0"))
+    if scene.points_xyz.shape[0] != TOOLS_RESAMPLE or len(scene.images) != m.views:
+        raise AssertionError(f"resample_sfm: load_scene reads {scene.points_xyz.shape[0]} "
+                             f"points and {len(scene.images)} views")
+    phase("tools-18", f"resample_sfm to {TOOLS_RESAMPLE} points (with replacement: "
+          f"{resampled['replace']}), {resampled['observations']} observations, in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    kernels3 = ("B1", "B2", "B3", "B4", "B5")
+    wrappers = kernel_wrappers()
+    step_ms, last = [], [0.0]
+
+    def reset():
+        for wrapper, attr in wrappers.values():
+            setattr(wrapper, attr, 0)
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launched = {k: getattr(w, a) for k, (w, a) in wrappers.items()}
+        if any(launched[k] != (1 if k in kernels3 else 0) for k in launched):
+            raise AssertionError(f"tools: train_colmap step {step} launched {launched}")
+        step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+        reset()
+
+    out_dir = TOOLS_DIR / "train"
+    reset()
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    trained = train_colmap.main(["--data", str(cap), "--downscale", "1", "--steps",
+                                 str(TOOLS_TRAIN_STEPS), "--out-dir", str(out_dir)],
+                                on_step=on_step)
+    losses = np.array(trained["losses"])
+    if len(losses) != TOOLS_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"tools: train_colmap losses {losses}")
+    if not (out_dir / "scene_final.ply").stat().st_size:
+        raise AssertionError("tools: train_colmap wrote an empty PLY")
+    for kid in kernels3:
+        note(kid, "train_colmap per step", 1, 1)
+    phase("tools-18", f"train_colmap on the maker's capture ({m.width}x{m.height}, "
+          f"{TOOLS_RESAMPLE} SfM points): losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; median step {statistics.median(step_ms[1:]):.2f} ms; PLY "
+          f"{(out_dir / 'scene_final.ply').stat().st_size} bytes; {smi}")
+
+    # ---- (d) record_parity, one family a call (each call resumes the file)
+    path = TOOLS_DIR / "parity.json"
+    expects = {"3dgs": kernels3, "2dgs": ("B3", "B4", "B5", "B6", "B8"),
+               "3dgs_ts32_tight": kernels3}
+    for name, expect in expects.items():
+        raster_surfel_tiles_fwd.residuals = 0
+        t0 = time.perf_counter()
+        rec, counts, _ = counted(lambda: record_parity.main([str(path), name]), expect,
+                                 f"record_parity {name}")
+        for kid in expect:
+            note(kid, f"record_parity {name} per record", counts[kid], 1)
+        r = rec[name]
+        numel = record_parity.H * record_parity.W * 3
+        share = r["fwd_pixels_above_1e5"] / numel
+        worst = max(r["grad_max_rel_exact"].values())
+        surfel = name == "2dgs"
+        max_share, max_err = (ROUTE_MAX_SHARE, ROUTE_MAX_ERR) if surfel else (
+            BLEND_MAX_SHARE, BLEND_MAX_ERR)
+        grad_max = ROUTE_GRAD_MAX_REL if surfel else GRAD_MAX_REL
+        phase("tools-18", f"record_parity {name} in {time.perf_counter() - t0:.1f} s: launches "
+              + json.dumps({k: v for k, v in counts.items() if v})
+              + (f", B6 residuals {raster_surfel_tiles_fwd.residuals}" if surfel else "")
+              + f"; forward {share:.3e} of values off by more than 1e-5 (max {max_share}), "
+              f"max {r['fwd_max_abs_diff']:.3e} (max {max_err}); largest gradient difference "
+              f"{worst:.3e} of its scale (max {grad_max})")
+        if share > max_share or r["fwd_max_abs_diff"] > max_err or not worst <= grad_max:
+            raise AssertionError(f"record_parity {name}: outside its rule: {r}")
+    rec = json.loads(path.read_text())
+    if set(rec) != {"git_rev", "workload", "device", "note", *expects}:
+        raise AssertionError(f"record_parity: the file holds {sorted(rec)}")
+    print(json.dumps(rec), flush=True)
+    phase("tools-18", f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    return per_unit
+
+
 def main() -> int:
     # ---- 1. Device
     if not torch.cuda.is_available():
@@ -3415,6 +3621,9 @@ def main() -> int:
     # ---- 17. The sharded paths of parallel/
     launches_sharded = parallel_phase(raw, smi)
 
+    # ---- 18. The tools
+    launches_cli_tools = tools_phase(smi)
+
     for k in kernels:
         kid = k["name"][:2]
         for family, launched in launches_capture.items():
@@ -3424,6 +3633,8 @@ def main() -> int:
             k["launches_cameras"] = launches_cameras[kid]
         if kid in launches_tools:
             k["launches_scene_tools"] = launches_tools[kid]
+        if kid in launches_cli_tools:
+            k["launches_cli_tools"] = launches_cli_tools[kid]
         if kid in ("B4", "B5", "B1", "B2", "B3"):
             k["launches"] = launches_train[["B4", "B5", "B1", "B2", "B3"].index(kid)]
         if kid in ("B4", "B5", "B1"):

@@ -29,7 +29,9 @@ CLIs; the scene tools: TSDF fusion and marching tetrahedra
 camera-DP x tile-SP with ZeRO-1 and the surfel halo exchange,
 ``train.train_step_sharded`` / ``train_step_sharded_surfel``, the
 all-to-all gaussian-sharded pipeline, ``init_multihost``, and
-``examples.benchmark_scaling``). Kernels: B1/B2
+``examples.benchmark_scaling``); the tools (``examples.benchmark``,
+``benchmark_proj``, ``make_synth_colmap`` with the COLMAP writers of
+``utils.colmap``, ``resample_sfm`` and ``record_parity``). Kernels: B1/B2
 (3DGS tile blend and its backward), B3 (segment sum), B4 (slot
 expansion), B5 (per-tile slot slice), B6/B7 (surfel tile blend, without
 and with the maps), B8 (their backward) and B9 (the blend-variant probe,

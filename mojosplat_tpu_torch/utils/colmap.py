@@ -177,6 +177,88 @@ def qvec_to_rotmat(q: np.ndarray) -> np.ndarray:
     )
 
 
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """(3, 3) proper rotation -> COLMAP wxyz unit quaternion (Shepperd's
+    branches on the trace and the largest diagonal term), as
+    ``scripts/make_synth_colmap.py`` writes it."""
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        w, x, y, z = 0.25 * s, (R[2, 1] - R[1, 2]) / s, \
+            (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        w, x, y, z = (R[2, 1] - R[1, 2]) / s, 0.25 * s, \
+            (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        w, x, y, z = (R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s, \
+            0.25 * s, (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        w, x, y, z = (R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s, \
+            (R[1, 2] + R[2, 1]) / s, 0.25 * s
+    q = np.array([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
+# One points3D.bin record up to its track: id, xyz, rgb, error, track
+# length (numpy's structured dtypes are packed: 51 bytes, COLMAP's layout).
+_POINT_RECORD = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                          ("error", "<f8"), ("track", "<u8")])
+
+
+def write_cameras_bin(path: str, cameras) -> None:
+    """``cameras.bin`` from [(camera_id, model_id, width, height, params)]."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam_id, model_id, width, height, params in cameras:
+            f.write(struct.pack("<iiQQ", cam_id, model_id, width, height))
+            f.write(np.asarray(params, "<f8").tobytes())
+
+
+def write_images_bin(path: str, images) -> None:
+    """``images.bin`` from [(image_id, qvec wxyz, tvec, camera_id, name,
+    xys (n, 2), point3d_ids (n,))]: each image's 2D observations of the
+    given points."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for image_id, qvec, tvec, camera_id, name, xys, pids in images:
+            f.write(struct.pack("<i", image_id))
+            f.write(np.asarray(qvec, "<f8").tobytes())
+            f.write(np.asarray(tvec, "<f8").tobytes())
+            f.write(struct.pack("<i", camera_id))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", len(pids)))
+            rec = np.zeros((len(pids), 3), "<f8")
+            rec[:, :2] = xys
+            rec[:, 2] = np.asarray(pids, "<i8").view("<f8")
+            f.write(rec.tobytes())
+
+
+def write_points3d_bin(path: str, xyz: np.ndarray, rgb: np.ndarray, *, ids=None,
+                       errors=0.5, tracks=None) -> None:
+    """``points3D.bin`` from xyz (P, 3) and 8-bit colours rgb (P, 3). ``ids``
+    defaults to 0..P-1, ``errors`` (a scalar or (P,)) is the reprojection
+    error, and ``tracks`` gives each point its (image_id, point2d_idx)
+    pairs; by default every track is empty (the observations live in
+    ``images.bin`` alone)."""
+    rec = np.zeros(xyz.shape[0], _POINT_RECORD)
+    rec["id"] = np.arange(xyz.shape[0]) if ids is None else ids
+    rec["xyz"] = xyz
+    rec["rgb"] = rgb
+    rec["error"] = errors
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", xyz.shape[0]))
+        if tracks is None:
+            f.write(rec.tobytes())
+            return
+        rec["track"] = [len(t) for t in tracks]
+        for r, t in zip(rec, tracks):
+            f.write(r.tobytes())
+            f.write(np.asarray(t, "<i4").tobytes())
+
+
 def camera_intrinsics(cam: ColmapCamera, downscale: int = 1):
     """(fx, fy, cx, cy, W, H, dist, camera_model) from a COLMAP camera,
     downscaled.

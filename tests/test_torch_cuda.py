@@ -39,7 +39,8 @@ written; B2 runs in clusters of 4 blocks of 256 threads with no spill.
 With tight_cull, the "cuda" route bins
 exactly as the "torch" route (ids and counters) and renders by B1's rule;
 the absgrad and view-space sinks' gradients of the two routes agree by
-B2's rule.
+B2's rule. The benchmark CLI's run_pipeline bins as many intersections on
+both routes, and a view of the capture maker's scene renders by B1's rule.
 """
 
 import dataclasses
@@ -1030,3 +1031,33 @@ def test_viewport_slabs_match_full_render(dev, family):
     render = render_surfels if disks else render_gaussians
     with pytest.raises(ValueError):  # not whole tile rows
         render(p["means3d"], *(p[k] for k in keys), cam, config=cfg, viewport_rows=(0, 40))
+
+
+def test_benchmark_run_pipeline_routes_agree(dev):
+    """The benchmark CLI's run_pipeline at a small size: the same
+    num_isects on both routes (one untimed call a stage)."""
+    from mojosplat_tpu_torch.examples import benchmark
+
+    def untimed(impl, name, fn, fn_args, iters):
+        fn(*fn_args)
+        return 0.0
+
+    args = benchmark.build_parser().parse_args(["--height", "128", "--width", "192"])
+    cam = benchmark.create_camera(args.height, args.width, device=dev)
+    got = {impl: benchmark.run_pipeline(args, cam, impl, 20_000, untimed)
+           for impl in ("torch", "cuda")}
+    assert got["cuda"]["num_isects"] == got["torch"]["num_isects"] > 0
+
+
+def test_synth_capture_view_cuda_route_matches_torch(dev):
+    """One view of the capture maker's scene (detail 0.1) with its config
+    and camera: the "cuda" route against the "torch" route by B1's rule."""
+    from mojosplat_tpu_torch.examples import make_synth_colmap as ms
+
+    gt = ms.build_scene(np.random.default_rng(7), 0.1)
+    gt = {k: torch.from_numpy(v).to(dev) for k, v in gt.items()}
+    R, T = ms.ring_cameras(4)[1]
+    cam = ms.view_camera(R, T, 128, 128, device=dev)
+    imgs = {impl: ms.render_view(gt, cam, ms.render_config(impl)) for impl in ("torch", "cuda")}
+    assert float(imgs["cuda"].std()) > 0.02
+    _route_rules("maker view", imgs["cuda"], imgs["torch"], [], [])

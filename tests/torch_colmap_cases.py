@@ -13,12 +13,12 @@ without it.
 
 from __future__ import annotations
 
-import struct
 from pathlib import Path
 
 import numpy as np
 
-from mojosplat_tpu_torch.utils.colmap import qvec_to_rotmat
+from mojosplat_tpu_torch.utils.colmap import (qvec_to_rotmat, write_cameras_bin, write_images_bin,
+                                              write_points3d_bin)
 from mojosplat_tpu_torch.utils.image import save_png
 from mojosplat_tpu_torch.utils.ply import save_gaussian_ply
 
@@ -40,45 +40,27 @@ CAMERA_MODELS = {
 
 
 def write_sparse(sparse: Path, cameras, views, xyz, rgb, observations: bool) -> None:
-    """A binary COLMAP model in ``sparse``. ``cameras``: [(model id, W, H,
-    params)], ids from 1; ``views``: [(name, qvec wxyz, tvec, camera id)];
-    ``xyz`` (P, 3), ``rgb`` (P, 3) uint8. With ``observations`` every view
-    observes every point at its pinhole projection (fx = params[0]), with a
-    track of one element per point."""
+    """A binary COLMAP model in ``sparse``, through the port's writers.
+    ``cameras``: [(model id, W, H, params)], ids from 1; ``views``: [(name,
+    qvec wxyz, tvec, camera id)]; ``xyz`` (P, 3), ``rgb`` (P, 3) uint8. With
+    ``observations`` every view observes every point at its pinhole
+    projection (fx = params[0]), with a track of one element per point."""
     sparse.mkdir(parents=True, exist_ok=True)
-    with open(sparse / "cameras.bin", "wb") as fo:
-        fo.write(struct.pack("<Q", len(cameras)))
-        for cid, (model, W, H, params) in enumerate(cameras, start=1):
-            fo.write(struct.pack("<iiQQ", cid, model, W, H))
-            fo.write(struct.pack(f"<{len(params)}d", *params))
-    with open(sparse / "images.bin", "wb") as fo:
-        fo.write(struct.pack("<Q", len(views)))
-        for i, (name, q, t, cid) in enumerate(views):
-            fo.write(struct.pack("<i", i + 1))
-            fo.write(struct.pack("<4d", *q))
-            fo.write(struct.pack("<3d", *t))
-            fo.write(struct.pack("<i", cid))
-            fo.write(name.encode() + b"\x00")
-            if not observations:
-                fo.write(struct.pack("<Q", 0))
-                continue
+    write_cameras_bin(str(sparse / "cameras.bin"),
+                      [(cid, *cam) for cid, cam in enumerate(cameras, start=1)])
+    images = []
+    for i, (name, q, t, cid) in enumerate(views):
+        xys, pids = np.zeros((0, 2)), np.zeros(0, np.int64)
+        if observations:
             _, W, H, params = cameras[cid - 1]
             f = params[0]
             pc = xyz @ qvec_to_rotmat(np.asarray(q)).T + np.asarray(t)
-            us = f * pc[:, 0] / pc[:, 2] + W / 2
-            vs = f * pc[:, 1] / pc[:, 2] + H / 2
-            fo.write(struct.pack("<Q", len(xyz)))
-            for j in range(len(xyz)):
-                fo.write(struct.pack("<ddq", us[j], vs[j], j + 1))
-    with open(sparse / "points3D.bin", "wb") as fo:
-        fo.write(struct.pack("<Q", len(xyz)))
-        for i in range(len(xyz)):
-            fo.write(struct.pack("<Q", i + 1))
-            fo.write(struct.pack("<3d", *xyz[i]))
-            fo.write(struct.pack("<3B", *rgb[i]))
-            fo.write(struct.pack("<d", 1.0))
-            fo.write(struct.pack("<Q", 1))
-            fo.write(struct.pack("<ii", 1, i))
+            xys = np.stack([f * pc[:, 0] / pc[:, 2] + W / 2, f * pc[:, 1] / pc[:, 2] + H / 2], -1)
+            pids = np.arange(1, len(xyz) + 1)
+        images.append((i + 1, q, t, cid, name, xys, pids))
+    write_images_bin(str(sparse / "images.bin"), images)
+    write_points3d_bin(str(sparse / "points3D.bin"), xyz, rgb, ids=np.arange(1, len(xyz) + 1),
+                       errors=1.0, tracks=[((1, i),) for i in range(len(xyz))])
 
 
 def _render_targets(root: Path, views, cloud, sh_degree: int, W: int, H: int, f: float,
