@@ -1,0 +1,8 @@
+"""Share of the traced window of training steps with no operation on the
+device, in per cent."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train":
+        return None
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
