@@ -83,7 +83,10 @@ def amortized_ms(fn, args, iters: int = 20) -> float:
     On CUDA tensors (the device comes from ``args``): ``iters`` calls queued
     back to back between two CUDA events, less one call timed the same
     way, over ``iters - 1``; with CPU tensors the same on ``perf_counter``.
-    One untimed call first (kernel builds, allocator warm-up).
+    One untimed call first (kernel builds, allocator warm-up). A stall of
+    the host (a preemption, another process) only adds time; where one in
+    the single call's reading makes it the longer, the difference means
+    nothing, and the ``iters`` calls' mean is returned instead.
     """
     if iters < 2:
         raise ValueError(f"iters must be at least 2, got {iters}")
@@ -111,7 +114,7 @@ def amortized_ms(fn, args, iters: int = 20) -> float:
 
     t1 = timed(1)
     tn = timed(iters)
-    return max(tn - t1, 0.0) / (iters - 1)
+    return (tn - t1) / (iters - 1) if tn > t1 else tn / iters
 
 
 def compilation_count() -> int:

@@ -29,7 +29,6 @@ from mojosplat_tpu_torch import RenderConfig
 from mojosplat_tpu_torch.examples import benchmark, benchmark_proj
 from mojosplat_tpu_torch.ops.binning import bin_gaussians_to_tiles
 from mojosplat_tpu_torch.ops.projection import project_gaussians
-from torch_scene_tools_cases import one_torch_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device", "cpu"]
@@ -37,12 +36,6 @@ CPU = ["--device", "cpu"]
 # about 40 pixels of the centre.
 N, H, W = 3000, 64, 96
 STAGES = ("projection", "binning", "rasterization", "e2e_forward", "e2e_fwd_bwd")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def load_reference(name: str):

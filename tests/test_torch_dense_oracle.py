@@ -19,16 +19,9 @@ from mojosplat_tpu_torch.ops.projection import project_gaussians
 from mojosplat_tpu_torch.ops.rasterization import rasterize_dense_oracle, rasterize_gaussians
 from test_rasterization import CFG as JCFG
 from test_rasterization import make_camera, make_scene, project_and_bin
-from torch_scene_tools_cases import one_torch_thread
 
 H, W, N, SEED = 48, 80, 80, 7
 BG = (0.1, 0.2, 0.3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def t(x):

@@ -26,16 +26,10 @@ from mojosplat_tpu_torch.examples import orbit_demo, render_sample, train_demo, 
 from mojosplat_tpu_torch.examples import viewer as viewer_cli
 from mojosplat_tpu_torch.utils import load_gaussian_ply, to_uint8
 from mojosplat_tpu_torch.utils.ply import save_gaussian_ply
-from torch_scene_tools_cases import one_torch_thread, surfel_sphere
+from torch_scene_tools_cases import surfel_sphere
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device", "cpu", "--impl", "torch"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

@@ -31,16 +31,10 @@ from mojosplat_tpu_torch.examples import (
     viewer,
 )
 from mojosplat_tpu_torch.utils.ply import save_gaussian_ply
-from torch_scene_tools_cases import one_torch_thread, surfel_sphere
+from torch_scene_tools_cases import surfel_sphere
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device", "cpu", "--impl", "torch"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def run_reference(script: str, argv: list) -> None:

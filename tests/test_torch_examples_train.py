@@ -14,16 +14,9 @@ import pytest
 
 from mojosplat_tpu_torch.examples import train_blender, train_demo, train_surfel_demo
 from mojosplat_tpu_torch.utils.ply import load_gaussian_ply
-from torch_scene_tools_cases import (
-    half_red_frame, one_torch_thread, ring_poses, write_blender_split)
+from torch_scene_tools_cases import half_red_frame, ring_poses, write_blender_split
 
 CPU = ["--device", "cpu", "--impl", "torch"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def test_train_blender_cli_mcmc(tmp_path, capsys):

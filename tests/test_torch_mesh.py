@@ -23,19 +23,12 @@ from torch_scene_tools_cases import (
     SPHERE_MEDIAN_VOXELS,
     SPHERE_P90_VOXELS,
     SPHERE_R,
-    one_torch_thread,
     reconstruct_sphere,
     sphere_sdf,
 )
 
 # Voxels whose weight may differ between the packages: threshold flips.
 TSDF_ATOL, WEIGHT_MAX_FLIPS = 1e-5, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def mt_case(name):

@@ -21,18 +21,9 @@ from mojosplat_tpu_torch.parallel import init_multihost, is_primary
 from mojosplat_tpu_torch.parallel import multihost
 from torch_colmap_cases import train_capture
 from torch_parallel_cases import ROOT, TIMEOUT_S, free_port, run_world
-from torch_scene_tools_cases import one_torch_thread
 
 ENVS = (multihost.ENV_COORD, multihost.ENV_NPROC, multihost.ENV_PID, "MASTER_ADDR",
         "MASTER_PORT", "WORLD_SIZE", "RANK")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # The capture's renders run in this process: one intra-op thread, so
-    # the test workers do not oversubscribe the cores.
-    with one_torch_thread():
-        yield
 
 
 @pytest.fixture

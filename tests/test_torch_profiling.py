@@ -14,6 +14,7 @@ the CPU, where no kernel is built.
 import json
 import logging
 import math
+import time
 
 import jax.numpy as jnp
 import pytest
@@ -38,7 +39,6 @@ from mojosplat_tpu_torch.utils import (
     trace,
 )
 from mojosplat_tpu_torch.utils.profiling import CHIP_PEAKS
-from torch_scene_tools_cases import one_torch_thread
 
 SHAPES = [
     dict(step_ms=182.0, n_pixels=1920 * 1080, n_isects=4_000_000, n_gaussians=1_000_000),
@@ -46,12 +46,6 @@ SHAPES = [
          sh_bases=4, tile_size=32),
     dict(step_ms=0.5, n_pixels=1000, n_isects=1000, n_gaussians=1000, sh_bases=1),
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 @pytest.mark.parametrize("backward", [True, False])
@@ -127,6 +121,21 @@ def test_trace_writes_annotated_trace(tmp_path):
 def test_amortized_ms_positive():
     ms = amortized_ms(lambda a, b: a @ b, (torch.ones((64, 64)), torch.ones((64, 64))), 5)
     assert math.isfinite(ms) and ms > 0
+
+
+def test_amortized_ms_stall_in_the_single_call():
+    """A stall in the one-call reading, longer than the ``iters`` calls
+    together, gives their mean, not 0.0."""
+    calls = []
+
+    def fn(x):
+        calls.append(None)
+        time.sleep(0.2 if len(calls) == 2 else 0.002)  # call 2: the one-call reading
+        return x
+
+    ms = amortized_ms(fn, (torch.ones(4),), 3)
+    assert len(calls) == 5
+    assert 2 <= ms < 100
 
 
 def test_compilation_count_zero_on_cpu():

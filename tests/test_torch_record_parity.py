@@ -22,17 +22,10 @@ import torch
 from mojosplat_tpu_torch import render_gaussians, render_surfels
 from mojosplat_tpu_torch import train as mtrain
 from mojosplat_tpu_torch.examples import record_parity
-from torch_scene_tools_cases import one_torch_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, H, W = 500, 48, 64
 GRAD_KEYS = {"features", "means3d", "opacities", "quats", "scales"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def reference_record_keys() -> set:

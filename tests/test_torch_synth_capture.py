@@ -27,18 +27,11 @@ from PIL import Image
 from mojosplat_tpu import RenderConfig as JConfig
 from mojosplat_tpu_torch.examples import make_synth_colmap, resample_sfm
 from mojosplat_tpu_torch.utils.colmap import qvec_to_rotmat
-from torch_scene_tools_cases import one_torch_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(MS_H="32", MS_W="32", MS_NVIEWS="2", MS_NSFM="300", MS_NOBS="50",
             MS_DETAIL="0.02")
 SPARSE_FILES = ("cameras.bin", "images.bin", "points3D.bin")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_torch_thread():
-        yield
 
 
 def load_script(name: str, env: dict):

@@ -11,18 +11,13 @@ Numpy only, no JAX, so the card tests and ``chip_smoke.py`` import it too:
     with the test's bounds on the vertices' radius error;
   - ``write_blender_split``: a NeRF-synthetic transforms split of RGBA
     frames at given world-to-camera poses;
-  - ``ring_poses``: look-at poses on a ring about the origin;
-  - ``one_torch_thread``: torch's intra-op pool at one thread, for the
-    test modules (the suite runs its files in parallel workers, and each
-    worker's full-width pool would oversubscribe the cores: the new files
-    took 224 s under 4 workers against 43 s with one thread each).
+  - ``ring_poses``: look-at poses on a ring about the origin.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from contextlib import contextmanager
 
 import numpy as np
 
@@ -159,15 +154,3 @@ def half_red_frame(H: int, W: int) -> np.ndarray:
     rgba[: H // 2, :, 3] = 255
     return rgba
 
-
-@contextmanager
-def one_torch_thread():
-    """torch's intra-op thread pool at one thread inside the block."""
-    import torch
-
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
